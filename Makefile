@@ -1,14 +1,14 @@
 # Developer tooling (the analog of the reference's tasks.py invoke targets,
 # reference: tasks.py:5-93 config/build/run/clean).
 
-.PHONY: test test-fast native bench render serve clean
+.PHONY: test test-fast native bench smoke render serve clean
 
 test:
 	python -m pytest tests/ -q
 
-# fast tier: everything not marked `slow` (interpret-mode pallas kernels
-# and heavy e2e runs) — oracle goldens, routing, scene CRUD, camera,
-# viewer endpoint basics.  ~4-5 min vs ~40 min for the full gate.
+# fast tier: everything not marked `slow` (heavy e2e runs) — oracle
+# goldens, the closest-hit kernel through the Pallas interpreter, scene
+# CRUD, camera, viewer endpoints.  Tests marked `gpu` skip without a GPU.
 test-fast:
 	python -m pytest tests/ -q -m "not slow"
 
@@ -18,6 +18,9 @@ native:
 bench:
 	python bench.py
 
+smoke:
+	python chip_smoke.py
+
 render:
 	python -m cudaraytracer_tpu render --scene rtow_final --camera-model look_at \
 	    --width 640 --height 360 -o render.png
@@ -26,5 +29,5 @@ serve:
 	python -m cudaraytracer_tpu serve --scene default --width 640 --height 360
 
 clean:
-	rm -f cudaraytracer_tpu/native/libcrt_native.so render.png
+	rm -rf cudaraytracer_tpu/native/libcrt_native.so render.png smoke_out
 	find . -name __pycache__ -type d -exec rm -rf {} +

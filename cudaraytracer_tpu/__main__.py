@@ -28,33 +28,23 @@ def cmd_render(cfg, args):
     rl = app.setup_default_layers()
     rtlog.rt_info("Rendering %d frame(s) of %d spp on %s ...",
                   args.frames, 1 if cfg.progressive else cfg.spp, jax.default_backend())
+    # the first frame compiles; time the rest (each frame ends on the
+    # device: RenderLayer.on_update blocks until its accumulator is ready)
     t0 = time.perf_counter()
-    if cfg.adaptive and cfg.progressive and rl._pallas is not None:
-        # adaptive offline render: progressive frames until every tile
-        # converges (>= adaptive_q of its pixels below the adaptive_tau
-        # display-stderr bar) or the frame budget runs out.  The activity
-        # check costs one small device fetch, so poll it per CHUNK of
-        # frames, not per frame.
-        done = 0
-        frac = 1.0
-        while done < args.frames:
-            chunk = min(8, args.frames - done)
-            app.run(max_frames=chunk)
-            done += chunk
-            frac = rl._pallas.active_fraction()
-            if frac == 0.0:
-                break
-        dt = time.perf_counter() - t0
-        rtlog.rt_info(
-            "Adaptive: %d/%d frames, %.0f%% tiles still active at stop "
-            "(tau=%.3g, %.1f ms/frame)", done, args.frames, frac * 100,
-            cfg.adaptive_tau, dt / max(done, 1) * 1000)
-        args.frames = done
-    else:
-        app.run(max_frames=args.frames)
-    dt = time.perf_counter() - t0
-    rtlog.rt_info("Done: %.1f ms/frame, accumulated %d spp",
-                  dt / args.frames * 1000, rl._spp_done)
+    app.run(max_frames=1)
+    first_s = time.perf_counter() - t0
+    ms = None
+    if args.frames > 1:
+        t0 = time.perf_counter()
+        app.run(max_frames=args.frames - 1)
+        ms = (time.perf_counter() - t0) / (args.frames - 1) * 1000
+    if app.frame_failures:
+        raise SystemExit(f"render: {app.frame_failures} frame(s) failed "
+                         "(see the log above)")
+    rtlog.rt_info("Done: first frame %.2f s (compile included)%s; "
+                  "accumulated %d spp", first_s,
+                  "" if ms is None else f", then {ms:.2f} ms/frame",
+                  rl._spp_done)
     if args.output.lower().endswith((".pfm", ".npy")):
         # HDR export: linear mean radiance, no gamma/clamp
         from .utils.image import save_pfm
@@ -72,6 +62,8 @@ def cmd_render(cfg, args):
     if getattr(args, "aov", None):
         _write_aov(rl, args.aov)
     app.close()
+    return {"frames": args.frames, "first_frame_s": first_s,
+            "ms_per_frame": ms, "spp": rl._spp_done}
 
 
 def _write_aov(rl, path: str):
@@ -126,10 +118,10 @@ def cmd_serve(cfg, args):
 
 
 def cmd_bench(cfg, args):
-    import runpy
     import os
+    import runpy
 
-    sys.argv = ["bench.py"]
+    sys.argv = ["bench.py"] + (["--cpu"] if args.cpu else [])
     runpy.run_path(os.path.join(os.path.dirname(__file__), "..", "bench.py"),
                    run_name="__main__")
 
@@ -167,7 +159,8 @@ def main(argv=None):
                                "_depth.png)")
     p_render.add_argument("--frames", type=int, default=None,
                           help="progressive frames (default: spp)")
-    p_render.add_argument("--cpu", action="store_true")
+    p_render.add_argument("--cpu", action="store_true",
+                          help="run on the CPU (default: require a GPU)")
 
     p_serve = sub.add_parser("serve", help="interactive viewer")
     config_mod.add_arguments(p_serve)
@@ -177,15 +170,18 @@ def main(argv=None):
     p_serve.add_argument("--data-dir", dest="data_dir", default=None,
                          help="directory scene saves/loads and checkpoints "
                               "are confined to (default: cwd)")
-    p_serve.add_argument("--cpu", action="store_true")
+    p_serve.add_argument("--cpu", action="store_true",
+                         help="run on the CPU (default: require a GPU)")
 
     p_bench = sub.add_parser("bench", help="run the headline benchmark")
+    p_bench.add_argument("--cpu", action="store_true",
+                         help="run on the CPU (default: require a GPU)")
 
     args = parser.parse_args(argv)
-    if getattr(args, "cpu", False):
-        import jax
+    from .utils.runtime import enable_compile_cache, select_backend
 
-        jax.config.update("jax_platforms", "cpu")
+    select_backend(cpu=args.cpu)
+    enable_compile_cache()
 
     rtlog.init()
     if args.cmd == "bench":

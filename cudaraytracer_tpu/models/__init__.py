@@ -1,3 +1,3 @@
-from . import bvh, camera, renderer, scene, scenes, wavefront
+from . import bvh, camera, renderer, scene, scenes
 
-__all__ = ["bvh", "camera", "renderer", "scene", "scenes", "wavefront"]
+__all__ = ["bvh", "camera", "renderer", "scene", "scenes"]

@@ -1,6 +1,6 @@
 """Host-side BVH builder producing flat skip-link arrays.
 
-TPU-native re-architecture of the reference BVHNode (reference:
+Re-architecture of the reference BVHNode (reference:
 CudaRayTracer/src/Hittables/Hittable.cuh:303-465):
 
   * The reference builds a pointer tree of managed-memory slabs on the host,
@@ -28,6 +28,7 @@ their plane axis (Hittable.cuh:167-181, 223-237, 279-293).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -70,8 +71,8 @@ def primitive_aabbs(scene: Scene, idx: np.ndarray):
             vel = scene.velocity[idx[row]]
             if (vel != 0).any():
                 # moving sphere (motion blur): the box covers the whole
-                # shutter sweep [c, c + v] so BVH nodes and megakernel
-                # cluster gates never cull a moved position
+                # shutter sweep [c, c + v] so BVH nodes never cull a
+                # moved position
                 bmin[row] = np.minimum(bmin[row], cc + vel - r)
                 bmax[row] = np.maximum(bmax[row], cc + vel + r)
         elif pt == 5:  # medium BOX: half-extents ride the edge1 row
@@ -224,23 +225,47 @@ def build_bvh(scene: Scene, capacity: int | None = None, use_native: bool = True
     )
 
 
-def make_bvh_hit_fn(bvh: BVHData, scene_data, t_min: float = 0.001):
+def resolve_traversal(traversal: str | None = None) -> str:
+    """The closest-hit traversal to use: ``"kernel"`` (the Pallas/Triton
+    kernel, ops/bvh_kernel.py) on a GPU backend, ``"xla"``
+    (ops/bvh_traverse.py) elsewhere; an explicit choice wins.
+    ``"interpret"`` runs the kernel through the Pallas interpreter."""
+    if traversal is None:
+        traversal = "kernel" if jax.default_backend() == "gpu" else "xla"
+    if traversal not in ("kernel", "xla", "interpret"):
+        raise ValueError(f"unknown BVH traversal {traversal!r}")
+    return traversal
+
+
+def make_bvh_hit_fn(bvh: BVHData, scene_data, t_min: float = 0.001,
+                    traversal: str | None = None, media: bool = True):
     """Closest-hit function (org, dirn) -> (hit, t, idx) using the BVH.
 
     Drop-in replacement for the brute-force ops.intersect.hit_scene path
-    (the renderer's hit_fn hook).
+    (the renderer's hit_fn hook).  ``traversal`` picks the tree walk
+    (resolve_traversal).  ``media=False`` leaves constant-density media
+    out entirely (the G-buffer sees through them, ops/gbuffer.py).
     """
+    from ..ops.bvh_kernel import bvh_closest_hit_kernel
     from ..ops.bvh_traverse import bvh_closest_hit
 
+    traversal = resolve_traversal(traversal)
+    tri_kw = (dict(edge1=scene_data.edge1, edge2=scene_data.edge2)
+              if scene_data.has_triangles else {})
+    if traversal == "xla":
+        closest = bvh_closest_hit
+    else:
+        closest = functools.partial(bvh_closest_hit_kernel,
+                                    interpret=traversal == "interpret")
+    with_media = media and scene_data.has_media
+
     def hit_fn(org, dirn, u_med=None, time=None):
-        hit, t, idx = bvh_closest_hit(
+        hit, t, idx = closest(
             org, dirn, bvh,
             scene_data.prim_type, scene_data.center, scene_data.size,
-            t_min=t_min,
-            edge1=scene_data.edge1 if scene_data.has_triangles else None,
-            edge2=scene_data.edge2 if scene_data.has_triangles else None,
+            t_min=t_min, **tri_kw,
         )
-        if scene_data.has_media or scene_data.has_motion:
+        if with_media or scene_data.has_motion:
             # media and moving spheres live OUTSIDE the tree (build_bvh
             # docstring): one brute side scan over just those prims
             # combines by closest hit — order-free, both candidate t's
@@ -250,7 +275,7 @@ def make_bvh_hit_fn(bvh: BVHData, scene_data, t_min: float = 0.001):
 
             side = jnp.zeros_like(scene_data.active)
             kw = {}
-            if scene_data.has_media:
+            if with_media:
                 side = side | (scene_data.mat_type == _ISO)
                 kw.update(mat_type=scene_data.mat_type,
                           density=scene_data.density, u_med=u_med)

@@ -1,6 +1,6 @@
 """The render engine: wavefront path tracing under jit.
 
-TPU-native re-architecture of the reference's CUDA megakernel
+Re-architecture of the reference's CUDA render kernel
 (reference: CudaRayTracer/src/Cuda/Kernel.cu:102-158) and its radiance loop
 ``color()`` (Kernel.cu:30-80):
 
@@ -248,7 +248,7 @@ def render_radiance(
 ):
     """Sum of ``spp`` radiance samples, f32[tile_h,W,3] (divide by spp to display).
 
-    The sample loop is the analog of the spp loop in the megakernel
+    The sample loop is the analog of the spp loop in the reference kernel
     (Kernel.cu:137-148) but sequential over full-frame wavefronts; spp is a
     traced scalar so the UI slider costs no recompile.  ``y0``/``tile_h``
     render a horizontal band (multi-chip row sharding); ``sample_offset``
@@ -320,6 +320,7 @@ class Renderer:
         nee: bool = False,
         nee_p: float = 0.5,
         qmc: bool = False,
+        traversal: str | None = None,
     ):
         self.width = int(width)
         self.height = int(height)
@@ -330,13 +331,17 @@ class Renderer:
         self.nee = bool(nee)  # estimator switch: recompiles, like accel
         self.nee_p = float(nee_p)
         self.qmc = bool(qmc)  # low-discrepancy pixel jitter (ops/qmc.py)
+        # BVH closest-hit walk (models/bvh.py::resolve_traversal): the
+        # kernel on a GPU, XLA elsewhere
+        self.traversal = traversal
 
         def _make_hit_fn(scene, bvh):
             if bvh is None:
                 return None
             from .bvh import make_bvh_hit_fn
 
-            return make_bvh_hit_fn(bvh, scene, t_min=self.t_min)
+            return make_bvh_hit_fn(bvh, scene, t_min=self.t_min,
+                                   traversal=self.traversal)
 
         @functools.partial(jax.jit, static_argnames=("with_stats",))
         def _render(scene, bvh, cam, key, spp, max_depth, with_stats=False,

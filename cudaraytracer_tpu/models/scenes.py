@@ -115,9 +115,8 @@ def rtow_final_camera(aperture: float = 0.1, **kw):
 
 def rtow_big_scene(seed: int = 1984, capacity: int = 1024) -> Scene:
     """RTOW-style scene at ~2x primitive count (~1000 spheres, a 32x32
-    grid): the scene-size scaling benchmark (BASELINE.md).  Exercises
-    capacity > 512 packing (segment padding, supercluster counts) and the
-    per-wave front-to-back ordering at larger n_super."""
+    grid): the scene-size scaling workload.  Exercises capacity > 512
+    and a deeper BVH."""
     rnd = np.random.RandomState(seed).random_sample
     scene = Scene(capacity=capacity)
     scene.add_sphere(
@@ -169,8 +168,7 @@ def procedural_globe_image(h: int = 256, w: int = 512) -> np.ndarray:
 
 def rtow_image_scene(seed: int = 1984, capacity: int = 512) -> Scene:
     """RTOW final scene with the big lambertian sphere image-textured
-    (a procedural globe): the benchmark workload for the megakernel's
-    first-hit-deferral image path (render_kernel.py)."""
+    (a procedural globe): the image-texture workload."""
     scene = rtow_final_scene(seed=seed, capacity=capacity)
     slot = scene.load_image_texture(procedural_globe_image())
     # the big lambertian sphere at (-4, 1, 0)
@@ -187,9 +185,8 @@ def rtow_image_scene(seed: int = 1984, capacity: int = 512) -> Scene:
 def mirror_room_scene(capacity: int = 16) -> Scene:
     """An image-textured metal mirror facing an image-textured area light:
     every camera ray picks up TWO image-texture factors (mirror texel x
-    light texel), the exact case the megakernel's two-record deferral
-    covers (render_kernel.py; the round-2 kernel mean-color-approximated
-    the second hit).  Also a good chrome-room stress for texel UV math."""
+    light texel), sampled exactly at every hit.  Also a good chrome-room
+    stress for texel UV math."""
     scene = Scene(capacity=capacity, background_start=(0.02, 0.02, 0.03),
                   background_end=(0.02, 0.02, 0.03))
     # mirror texture: warm/cool split panels
@@ -292,9 +289,8 @@ def mesh_demo_scene(capacity: int = 1024) -> Scene:
     """Triangle-mesh showcase (BEYOND-REFERENCE: the reference has no mesh
     support, Hittable.cuh:30-38): a metal icosphere, a lambertian torus and
     a glass-slab box — ~750 triangles — over a checkered ground, plus one
-    classic glass sphere.  Exercises kind-3 clusters in the megakernel and
-    the Moller-Trumbore branch in every accel path at a realistic mesh
-    primitive count."""
+    classic glass sphere.  Exercises the Moller-Trumbore branch in every
+    accel path at a realistic mesh primitive count."""
     from ..utils import mesh
 
     scene = Scene(capacity=capacity)
@@ -323,8 +319,8 @@ def mesh_demo_camera(**kw):
 def mesh_smooth_scene(capacity: int = 1024) -> Scene:
     """mesh_demo with PER-VERTEX ATTRIBUTES (round 3): the same geometry,
     but the icosphere and torus carry smooth vertex normals and the
-    icosphere a spherical uv map — the benchmark scene for the vattr
-    payload-row + plane-select cost in the megakernel (BASELINE.md)."""
+    icosphere a spherical uv map — the workload for per-vertex attribute
+    interpolation."""
     import numpy as np
 
     from ..utils import mesh
@@ -355,10 +351,9 @@ def terrain_scene(capacity: int = 1024, n: int = 23) -> Scene:
     """Textured heightfield terrain (round 3): a (n-1)^2-quad grid mesh —
     968 triangles at the default — with smooth area-weighted vertex
     normals and a height-painted image texture sampled through per-vertex
-    uvs, plus a metal and a glass sphere.  The mesh-family scaling
-    workload at the proven ~1000-primitive table size (rtow_big envelope,
-    BASELINE.md), exercising vattr payload rows + image deferral +
-    triangle clusters together."""
+    uvs, plus a metal and a glass sphere.  The mesh-family workload at
+    ~1000 primitives, exercising vertex attributes + image textures +
+    triangles together."""
     from ..utils import mesh
 
     # deterministic rolling heightfield on a [-4, 4]^2 grid
@@ -385,9 +380,11 @@ def terrain_scene(capacity: int = 1024, n: int = 23) -> Scene:
     # img[(1 - v) * h, u * w], so color(hn)[ix, iz] must land at
     # img[n-1-iz, ix]: paint color(hn).T[::-1].
     hn = (H - H.min()) / max(float(H.max() - H.min()), 1e-9)
-    # paint at 8x the grid resolution (bilinear-upsampled heights) so the
-    # nearest-neighbor sampler shows smooth bands, not 23x23 blocks
-    up = 8
+    # paint at up to 8x the grid resolution (bilinear-upsampled heights)
+    # so the nearest-neighbor sampler shows smooth bands, not 23x23
+    # blocks — capped to the 512-texel atlas tile, so the texture never
+    # needs a resample to fit
+    up = max(1, min(8, 512 // n))
     m = n * up
     # texel c holds grid coordinate that the SAMPLER maps to it: the
     # sampler takes u = ix/(n-1) to col floor(u*m), so invert col -> grid
@@ -422,11 +419,9 @@ def terrain_scene(capacity: int = 1024, n: int = 23) -> Scene:
 
 def terrain_big_scene(capacity: int = 32768, n: int = 101) -> Scene:
     """Large-scene workload: the terrain heightfield at 20,000 textured
-    smooth-shaded triangles — 3.3x past the megakernel's measured vattr
-    SMEM ceiling (BASELINE.md "SMEM primitive ceiling"), so accel='auto'
-    routes it to the XLA skip-link BVH path (log-depth traversal, the
-    reference's scaling mechanism, Hittable.cuh:387-439).  Exercises the
-    framework's beyond-SMEM scene-size story end to end."""
+    smooth-shaded triangles — the registry's largest scene, where the BVH
+    (log-depth traversal, the reference's scaling mechanism,
+    Hittable.cuh:387-439) is what keeps a 720p frame interactive."""
     return terrain_scene(capacity=capacity, n=n)
 
 
@@ -655,13 +650,9 @@ def book2_final_scene(seed: int = 1984, capacity: int = 8192,
         FOOTPRINT differs.  cornell_smoke's medium boxes, by contrast,
         carry the book's true yaw rotations since round 5)
 
-    Exercises has_tris + has_images + has_noise + has_media + has_motion
-    compiled together in the megakernel (the full static-flag matrix;
-    tests/test_nee_kernel.py compiles it through the kernel).  Its 5,809
-    prims pack to a 951.6 KB table (images+motion add P rows; kind-
-    segregated Morton clusters pad to 8,400 columns) that Mosaic REJECTS
-    resident on v5e (measured round 5), so the pipeline's byte-accurate
-    fits_megakernel routes it to the HBM-STREAMED layout."""
+    Exercises triangles + image textures + noise + media + motion
+    together (5,809 primitives); its media and moving spheres take the
+    BVH path's brute side pass (models/bvh.py::make_bvh_hit_fn)."""
     from ..utils import mesh
 
     rnd = np.random.RandomState(seed).random_sample
@@ -732,27 +723,19 @@ def book2_final_camera(**kw):
 
 
 def all_feature_probe_scene(capacity: int = 64) -> Scene:
-    """The canonical all-static-flags probe: one tiny scene whose packed
-    tables compile every beyond-reference kernel branch together —
-    has_nee (emissive rect -> light table) + has_noise (marble sphere) +
-    has_motion (mover) + has_media (medium sphere) + has_boxm/has_rotm
-    (yaw-rotated medium box).  SHARED by the driver's multichip signal
-    (__graft_entry__.dryrun_multichip feature shard), the 8-device
-    sharding test (tests/test_parallel.py) and the streamed-layout
-    bit-identity test (tests/test_stream.py) so adding the next static
-    flag means extending ONE scene, not three hand-synced copies
-    (round-5 review finding).  Unregistered on purpose: it is a probe,
-    not a gallery scene.  View with cornell_like_camera()/two_plane."""
+    """The canonical all-features probe: one tiny scene that turns on
+    every beyond-reference branch together — an emissive rect (the NEE
+    light table), a marble noise sphere, a moving sphere (motion blur), a
+    medium sphere and a yaw-rotated medium box.  The sharded-render test
+    (tests/test_parallel.py) renders it, so adding the next feature means
+    extending ONE scene.  Unregistered on purpose: it is a probe, not a
+    gallery scene.  View with cornell_like_camera()/two_plane."""
     sc = Scene(capacity=capacity, background_start=(0, 0, 0),
                background_end=(0, 0, 0))
     sc.add_xz_rect((0, 6, 0), 2.0, 2.0, mat_type=3, light=5.0)  # light
     # a small emitter IN DIRECT VIEW of cornell_like_camera ((0,2.5,9)
-    # looking -z), placed clear of both media volumes: interpret-mode
-    # PRNG is wave-state-dependent and degenerate draws can absorb every
-    # scattered path in the media, rendering an all-scatter scene BLACK
-    # in-suite while a fresh process renders it lit (observed round 5).
-    # First-hit emission needs no PRNG draw, so "the frame is lit"
-    # assertions on this probe hold in any process state.
+    # looking -z), placed clear of both media volumes: first-hit emission
+    # needs no random draw, so "the frame is lit" holds at any seed
     sc.add_xy_rect((3.0, 2.5, -3.0), 1.0, 1.0, mat_type=3, light=3.0)
     sc.add_xz_rect((0, 0, 0), 20.0, 20.0, albedo=(0.6, 0.6, 0.6))
     sc.add_sphere((-1.5, 1.0, -2.0), 1.0, albedo=(0.7, 0.4, 0.3),
@@ -764,10 +747,6 @@ def all_feature_probe_scene(capacity: int = 64) -> Scene:
     sc.add_medium_box((0.0, 1.0, -4.0), (2.0, 2.0, 2.0), density=1.0,
                       yaw=0.3, albedo=(0.2, 0.2, 0.2))
     return sc
-
-
-ALL_FEATURE_FLAGS = dict(has_noise=True, has_media=True, has_motion=True,
-                         has_boxm=True, has_rotm=True, has_nee=True)
 
 
 SCENES = {

@@ -15,16 +15,15 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SRCS = [os.path.join(HERE, "bvh_builder.cpp"),
-        os.path.join(HERE, "table_packer.cpp")]
+SRCS = [os.path.join(HERE, "bvh_builder.cpp")]
 LIB = os.path.join(HERE, "libcrt_native.so")
 
 
 def build(verbose: bool = True) -> str:
     cmd = [
         # -ffp-contract=off: no FMA contraction — NumPy rounds every
-        # multiply and subtract separately, and the packers' cross
-        # products must match it BIT-identically (tests/test_mesh.py)
+        # multiply and subtract separately, and the builder's boxes must
+        # match the NumPy builder bit-identically
         "g++", "-O3", "-march=native", "-ffp-contract=off",
         "-shared", "-fPIC", "-std=c++17",
         "-o", LIB, *SRCS,

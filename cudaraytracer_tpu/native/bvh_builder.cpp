@@ -1,6 +1,6 @@
 // Native BVH builder: binned SAH -> flat DFS arrays with skip links.
 //
-// TPU-native analog of the reference's host-side BVH construction
+// Analog of the reference's host-side BVH construction
 // (reference: CudaRayTracer/src/Hittables/Hittable.cuh:303-385, which sorts
 // by primitive TYPE via thrust and allocates managed-memory node pairs).
 // This builder is a proper surface-area-heuristic build producing the flat

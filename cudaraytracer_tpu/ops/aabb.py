@@ -3,7 +3,7 @@
 Analog of the reference AABB::Hit (reference:
 CudaRayTracer/src/Hittables/AABB.cuh:30-50): per-axis interval clipping with
 inverse-direction multiply.  Here all three axes and all rays are processed
-at once on the VPU, and the caller precomputes inv_dir once per bounce
+at once, and the caller precomputes inv_dir once per bounce
 instead of once per node visit.
 """
 

@@ -1,6 +1,6 @@
 """Stackless skip-link BVH traversal, vectorized over the ray wavefront.
 
-TPU-native replacement for the reference's per-thread explicit-stack
+The plain XLA version of the reference's per-thread explicit-stack
 traversal (reference: CudaRayTracer/src/Hittables/Hittable.cuh:387-439,
 which uses a register-pressure-limited 16-entry stack — a hard scene-size
 limit).  Every ray carries a single node index; DFS-flattened nodes make
@@ -8,6 +8,8 @@ the hit-path successor ``idx+1`` and a precomputed ``skip`` link the
 miss-path successor, so there is no stack at all and no depth limit.  The
 whole wavefront advances in lock-step inside one ``lax.while_loop`` until
 every lane reaches the -1 sentinel; lanes that finish early are masked.
+It is the reference the GPU closest-hit kernel (ops/bvh_kernel.py) is
+tested against, and the traversal on the CPU.
 
 Leaf handling inlines a single-primitive intersection test (the analog of
 PerformHit's type switch, Hittable.cuh:470-485) computed branch-free for
@@ -52,7 +54,8 @@ def _leaf_prim_t(org, dirn, a_quad, ptype, center, size, t_min, t_max,
     sph_hit = has_root & (t0_ok | t1_ok)
 
     # ---- rect (any orientation) ----
-    # one-hot multiply-sum instead of pairwise [R]-index gathers (slow on TPU)
+    # one-hot multiply-sum selects the rect axes (bvh_kernel.py selects
+    # the same components with jnp.where)
     rtype = jnp.clip(ptype, 0, 3)  # triangle rows masked out below
     k_ax = jnp.asarray(_K_AXIS)[rtype]
     a_ax = jnp.asarray(_A_AXIS)[rtype]

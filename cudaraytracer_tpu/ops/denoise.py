@@ -8,15 +8,13 @@ iteration convolves the radiance image with a 5x5 B3-spline kernel whose
 taps are spaced 2^i pixels apart, and every tap is modulated by
 edge-stopping weights from the G-buffer (normal/albedo/depth,
 ops/gbuffer.py) and from luminance (optionally scaled by a per-pixel
-variance plane — the adaptive-sampling stats double as the SVGF variance
-estimate).
+variance plane when the caller has one).
 
-TPU-first shape: the whole filter is static-shaped XLA — 25 edge-padded
-static slices per iteration, elementwise weight math fused by XLA onto
-the VPU; no gathers, no data-dependent control flow, jit-cached per
-(H, W, iterations).  A 720p 4-iteration pass is ~100 fused
-elementwise ops over [720,1280] planes — microseconds-scale on a v5e,
-applied only at DISPLAY time (not per accumulation launch).
+The whole filter is static-shaped XLA — 25 edge-padded static slices per
+iteration, elementwise weight math fused by XLA; no gathers, no
+data-dependent control flow, jit-cached per (H, W, iterations).  A 720p
+4-iteration pass is ~100 fused elementwise ops over [720,1280] planes,
+applied only at DISPLAY time (not per accumulation frame).
 """
 from __future__ import annotations
 

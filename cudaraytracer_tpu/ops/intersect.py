@@ -1,18 +1,19 @@
 """Vectorized ray-primitive intersection.
 
-TPU-native re-architecture of the reference's per-thread tagged-union hit
+Re-architecture of the reference's per-thread tagged-union hit
 dispatch (reference: CudaRayTracer/src/Hittables/Hittable.cuh:80-294 for the
 Sphere/XYRect/XZRect/YZRect `Hit` methods and Hittable.cuh:470-485 for the
 `PerformHit` type switch).  Key design differences:
 
   * Scene is flat SoA (struct-of-arrays), not a pointer graph: primitives are
     described by ``prim_type[N]``, ``center[N,3]``, ``size[N,2]``,
-    ``active[N]`` arrays resident in HBM/VMEM.
+    ``active[N]`` arrays resident in device memory.
   * All rays x a block of primitives are tested at once.  The sphere
     quadratic's cross terms are expressed as two ``[R,3] @ [3,B]`` matmuls
-    (ray-origin·center and ray-dir·center), which XLA maps onto the MXU;
-    everything else is ``[R,B]`` elementwise work on the VPU.  No ``[R,B,3]``
-    intermediate is ever materialized.
+    (ray-origin·center and ray-dir·center) at HIGHEST precision (full
+    f32, never TF32); everything else is ``[R,B]`` elementwise work.  No
+    ``[R,B,3]`` intermediate is ever materialized.  This is the plain
+    reference: the BVH path (models/bvh.py) is checked against it.
   * The closest-hit reduction runs as a ``lax.scan`` over primitive blocks so
     peak memory is ``O(R * block)`` regardless of scene size.
   * A second cheap pass reconstructs the full hit record (normal, uv,
@@ -38,7 +39,7 @@ order-independent, because t is a deterministic function of (ray, u).
 ``hit_scene`` takes (mat_type, density, u_med) to enable the branch;
 media-free calls trace the identical graph they always did.
 
-The triangle test is Moller-Trumbore re-factored for the MXU: every
+The triangle test is Moller-Trumbore re-factored as matmuls: every
 numerator/denominator of (t, u, v) is a scalar triple product, and
 det3[x, y, z] splits over tv = o - v0 into a per-RAY vector dotted with a
 per-PRIMITIVE vector — so the whole [R,B] candidate grid is four
@@ -120,14 +121,16 @@ def _sphere_block_t(org, dirn, a_quad, center_b, radius_b, t_min, t_max):
     roots (-b ∓ sqrt(disc))/a, nearer root preferred.
 
     oc·d and oc·oc are expanded so the ray-center cross terms become
-    [R,3]@[3,B] matmuls (MXU-friendly), avoiding an [R,B,3] tensor:
+    [R,3]@[3,B] matmuls, avoiding an [R,B,3] tensor:
         oc·d  = o·d - c·d
         oc·oc = o·o - 2 o·c + c·c
     """
     ct = center_b.T  # [3,B]
-    # HIGHEST precision: TPU's default matmul precision is bf16, which
-    # destroys the quadratic's discriminant (measured: visibly darker
-    # frames from missed hits on TPU vs CPU)
+    # HIGHEST precision keeps these products in full f32: at the default
+    # precision a GPU may run f32 matmuls in TF32 (10-bit mantissa), which
+    # destroys the quadratic's discriminant (disc = b*b - a*c cancels) and
+    # drops hits — and this scan is the plain reference the BVH path and
+    # its kernel are checked against
     o_dot_c = jnp.dot(org, ct, preferred_element_type=jnp.float32,
                       precision=lax.Precision.HIGHEST)  # [R,B]
     d_dot_c = jnp.dot(dirn, ct, preferred_element_type=jnp.float32,
@@ -168,8 +171,8 @@ def _rect_block_t(org, dirn, ptype_b, center_b, size_b, t_min, t_max):
     half_b = 0.5 * jnp.where(ea_col == 0, size_b[:, 1], size_b[:, 0])
 
     # per-prim axis selection via one-hot [B,3] masks; ray components are
-    # extracted with [R,3]@[3,B] matmuls (MXU) instead of [R,B] gathers,
-    # which lower to slow scatter/gather loops on TPU
+    # extracted with [R,3]@[3,B] matmuls (at HIGHEST precision: exact
+    # selections, no TF32 rounding) instead of [R,B] gathers
     axes3 = jnp.arange(3, dtype=jnp.int32)
     k_oh = (k_ax[:, None] == axes3[None, :]).astype(org.dtype)  # [B,3]
     a_oh = (a_ax[:, None] == axes3[None, :]).astype(org.dtype)
@@ -201,7 +204,7 @@ def _tri_block_t(org, dirn, v0_b, e1_b, e2_b, t_min, t_max):
     """Candidate hit distance for all rays x a block of triangles.
 
     Moller-Trumbore via scalar-triple-product factoring (module docstring):
-    four [R,3] @ [3,B] matmuls on the MXU, no [R,B,3] intermediate.
+    four [R,3] @ [3,B] matmuls, no [R,B,3] intermediate.
     org,dirn: [R,3]; v0_b,e1_b,e2_b: [B,3].  Returns (hit[R,B], t[R,B]).
     """
     def cross_b(a, b):  # [B,3] x [B,3]
@@ -635,9 +638,8 @@ def make_hit_record(
 
     # --- rect branch (vectorized across the 3 rect types) ---
     # Per-ray axis selection is done with one-hot masks + multiply-sum
-    # instead of [R]-indexed fancy gathers: pairwise gathers lower to very
-    # slow scatter/gather loops on TPU (measured ~100ms/frame at 720p),
-    # while these are a handful of fused VPU ops.
+    # instead of [R]-indexed fancy gathers: a handful of fused
+    # elementwise ops.
     rtype = jnp.clip(ptype, 0, YZ_RECT)  # triangle rows masked out below
     k_ax = jnp.asarray(_K_AXIS)[rtype]
     a_ax = jnp.asarray(_A_AXIS)[rtype]

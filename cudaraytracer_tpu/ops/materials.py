@@ -1,13 +1,13 @@
 """Material scatter/emission over a ray batch.
 
-TPU-native analog of the reference's Material tagged union with
+Analog of the reference's Material tagged union with
 Lambertian/Metal/Dielectric/DiffuseLight variants (reference:
 CudaRayTracer/src/Hittables/Material.cuh:34-177) and the per-bounce type
 switch in the radiance loop (CudaRayTracer/src/Cuda/Kernel.cu:51-72).
 
 All four material branches are computed for every lane and combined with
 masked selects — on a vector machine this costs less than divergent control
-flow would, since each branch is a few VPU ops.  RNG is counter-based
+flow would, since each branch is a few elementwise ops.  RNG is counter-based
 (one shared in-unit-sphere draw and one uniform draw per bounce) instead of
 curand state arrays.
 

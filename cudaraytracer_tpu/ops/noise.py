@@ -4,19 +4,15 @@ The reference's texture set stops at Constant/Checker/Image
 (CudaRayTracer/src/Hittables/Texture.cuh:7-109); this adds the classic
 "Ray Tracing: The Next Week" noise/marble texture as a fourth type.
 
-TPU-first design: the canonical Perlin implementation keeps permutation
-TABLES and gathers them per-lattice-point — per-lane gathers are exactly
-what the TPU vector unit does not do (the same reason the megakernel has
-no per-ray BVH descent, BASELINE.md).  Instead the lattice hash is
-TABLE-FREE: a float hash (fract(sin(dot(cell, K)) * 43758.5453), the
-standard GLSL shader-land hash) built only from mul/add/sin/floor — all
-full-tile VPU ops that lower in Mosaic (the in-kernel checker already
-uses jnp.sin) and vectorize identically in XLA and NumPy.
+The canonical Perlin implementation keeps permutation TABLES and gathers
+them per-lattice-point.  Here the lattice hash is TABLE-FREE instead: a
+float hash (fract(sin(dot(cell, K)) * 43758.5453), the standard GLSL
+shader-land hash) built only from mul/add/sin/floor — elementwise ops
+that fuse and vectorize identically in XLA and NumPy.
 
 Every function takes an ``xp`` module (numpy or jax.numpy) so ONE
-implementation serves the XLA renderers, the Pallas megakernel (elementwise
-f32 tiles), and the NumPy test oracle.  Inputs are component arrays
-(px, py, pz), matching the kernel's SoA registers.
+implementation serves the XLA renderers and the NumPy test oracle.
+Inputs are component arrays (px, py, pz).
 
 Numerical note: the hash AMPLIFIES ulp differences (the 43758.5453 factor
 multiplies the sin backend's rounding error before fract), so outputs agree
@@ -29,11 +25,11 @@ not a sup bound: fract is discontinuous, so when sin*43758 lands within
 (~0.4% of corner draws) — isolated cells differ outright, the quantiles
 hold (tests/test_noise.py).
 
-Range note (ADVICE r3): lattice coords are WRAPPED mod 61 before hashing,
+Range note: lattice coords are WRAPPED mod 61 before hashing,
 bounding |sin argument| < ~3.2e4 at ANY scene coordinate and octave count —
 without the wrap, f32 ulp error times the 43758 amplification exceeds 1
 once ~516*||p||*2^octave grows past ~1e7, and the ~5e-3 cross-backend
-agreement (and TPU sin's usable range) would only hold near the origin.
+agreement (and a fast sin's usable range) would only hold near the origin.
 The noise therefore tiles with period 61 lattice cells per axis (61^3
 distinct cells) — invisible at texture scales, and the wrap is exact in
 f32 (lattice coords are integers far below 2^24).

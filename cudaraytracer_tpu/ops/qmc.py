@@ -19,10 +19,10 @@ AFTER the primary ray (scatter, lens, Russian roulette, media, NEE
 light picks) stay PRNG-driven, so sample estimates remain independent
 in the non-jitter dimensions.
 
-Both render paths share these exact formulas (the XLA raygen in
-models/camera.py and the megakernel in ops/pallas/render_kernel.py):
-with QMC enabled the two paths trace IDENTICAL primary rays for the
-same global sample index, which tests exploit (tests/test_qmc.py).
+The jitter is a pure function of (pixel, global sample index): with QMC
+enabled every closest-hit path (brute, BVH with either traversal) traces
+IDENTICAL primary rays for the same index, which tests exploit
+(tests/test_qmc.py).
 
 The global sample index ``m = sample_base + samples_done_this_launch``
 can reach millions in long progressive runs, where frac(m * alpha) in
@@ -48,8 +48,7 @@ C1_X = float(np.mod(4096.0 * ALPHA_X, 1.0))
 C1_Y = float(np.mod(4096.0 * ALPHA_Y, 1.0))
 
 # interleaved gradient noise constants (Jimenez 2014, public) — the
-# deterministic per-pixel rotation field.  Pure mul/add/floor f32 math so
-# the SAME formula lowers in Mosaic (megakernel) and XLA (raygen).
+# deterministic per-pixel rotation field.  Pure mul/add/floor f32 math.
 _IGN_A = 52.9829189
 _IGN_BX = 0.06711056
 _IGN_BY = 0.00583715

@@ -14,8 +14,8 @@ cosine lobe against the mixture to 1.0), and light-driven scenes
 
 Everything here is wavefront-vectorized over a ray batch and built from
 select-gated closed forms — no per-lane control flow, no gathers beyond
-an 8-slot light table (TPU-friendly: the light table is tiny and the
-per-ray work is a handful of VPU ops per light slot).
+an 8-slot light table (the light table is tiny and the per-ray work is
+a handful of elementwise ops per light slot).
 
 Supported light geometry: spheres, the three axis-aligned rect
 orientations (prim types 0-3) AND triangles (prim type 4 — uniform-area
@@ -327,73 +327,3 @@ def nee_lambertian(rec_point, rec_normal, tex_color, lights, key, r,
     w = scat_pdf / jnp.maximum(pdf, 1e-9)
     attenuation = tex_color * jnp.where(alive, w, 0.0)[:, None]
     return dirn, attenuation, alive
-
-
-# ------------------------------------------------------- megakernel pack
-# The Pallas megakernel reads the light table as SMEM scalars appended to
-# the 38-float camera vector (ops/pallas/render_kernel.py has_nee): 8
-# slots x 14 precomputed fields + a 2-float header.  Per-slot layout:
-#   +0 geom type: 0 rect, 1 sphere, 2 triangle
-#   +1..3 center xyz (triangle: v0)
-#   rect slots:     +4..6 center in (k, a, b) axis order (pdf plane test)
-#                   +7 half_a  +8 half_b
-#                   +10..12 k/a/b axis indices (in-kernel scalar selects)
-#   sphere slots:   +9 radius
-#   triangle slots: +4..6 edge1  +7..9 edge2 (v1-v0, v2-v0; the kernel
-#                   derives normal/area from the scalar cross product)
-#   +13 valid
-LIGHT_SLOT_STRIDE = 14
-LIGHT_BLOCK_LEN = 2 + MAX_LIGHTS * LIGHT_SLOT_STRIDE  # header: [n_lights, pad]
-
-
-def pack_lights_np(scene):
-    """Host-side NumPy light table for the megakernel (f32[114]) — the
-    same light set `collect_lights` derives in-graph for the XLA paths
-    (active sphere/rect/triangle DIFFUSE_LIGHT emitters, static only),
-    with the rect axis maps precomputed so the kernel needs no per-slot
-    dispatch beyond scalar selects.  Append to the camera vector when
-    has_nee."""
-    import numpy as np
-
-    def _ok(i):
-        t = int(scene.prim_type[i])
-        if int(scene.mat_type[i]) != materials.DIFFUSE_LIGHT:
-            return False
-        if float(scene.light[i]) <= 0.0 or (scene.velocity[i] != 0).any():
-            return False
-        if t <= intersect.YZ_RECT:
-            return True
-        if t == intersect.TRIANGLE:
-            n = np.cross(np.asarray(scene.edge1[i], np.float64),
-                         np.asarray(scene.edge2[i], np.float64))
-            return float(n @ n) > 1e-16  # degenerate tris excluded
-        return False
-
-    v = np.zeros(LIGHT_BLOCK_LEN, np.float32)
-    idx = [int(i) for i in scene.active_indices() if _ok(i)][:MAX_LIGHTS]
-    v[0] = float(len(idx))
-    for s, i in enumerate(idx):
-        b = 2 + LIGHT_SLOT_STRIDE * s
-        t = int(scene.prim_type[i])
-        c = np.asarray(scene.center[i], np.float64)
-        sz = np.asarray(scene.size[i], np.float64)
-        v[b + 1:b + 4] = c
-        if t == intersect.TRIANGLE:
-            v[b] = 2.0
-            v[b + 4:b + 7] = np.asarray(scene.edge1[i], np.float64)
-            v[b + 7:b + 10] = np.asarray(scene.edge2[i], np.float64)
-        elif t >= intersect.XY_RECT:
-            v[b] = 0.0
-            ka = int(intersect._K_AXIS[t])
-            aa = int(intersect._A_AXIS[t])
-            ba = int(intersect._B_AXIS[t])
-            ea = int(intersect._A_EXT_COL[t])
-            v[b + 4], v[b + 5], v[b + 6] = c[ka], c[aa], c[ba]
-            v[b + 7] = 0.5 * sz[ea]
-            v[b + 8] = 0.5 * sz[1 - ea]
-            v[b + 10], v[b + 11], v[b + 12] = float(ka), float(aa), float(ba)
-        else:
-            v[b] = 1.0
-            v[b + 9] = abs(float(sz[0]))
-        v[b + 13] = 1.0
-    return v

@@ -1,11 +1,11 @@
 """Texture evaluation over a ray batch.
 
-TPU-native analog of the reference's Texture tagged union with
+Analog of the reference's Texture tagged union with
 Constant/Checker/Image variants (reference:
 CudaRayTracer/src/Hittables/Texture.cuh:7-109).  Instead of pointer-union
 dispatch per CUDA thread, textures are SoA fields of the primitive table and
 all three variants are evaluated branch-free with masked selects (they are
-each a handful of VPU ops); image lookups gather from a fixed-capacity
+each a handful of elementwise ops); image lookups gather from a fixed-capacity
 uint8 texture atlas resident on device.
 
 Texture type encoding (TextureType enum order, Texture.cuh:7-12; type 3 is
@@ -51,9 +51,8 @@ def sample_texture(
     checker = jnp.where((sines < 0.0)[:, None], albedo, albedo2)
 
     # --- image (Texture.cuh:81-105): clamp u, flip v, nearest-neighbor
-    # lookup.  FLAT-1D packed-u32 gather: the 4D uint8 gather lowers ~2x
-    # slower on TPU (measured 32 -> 17 ms per 921k lookups at 720p,
-    # render_kernel.py epilogue note); the in-jit pack is one cheap
+    # lookup.  FLAT-1D packed-u32 gather: one 32-bit load per texel
+    # instead of a 4D uint8 gather; the in-jit pack is one cheap
     # elementwise pass over the atlas and the texels are bit-identical.
     ah, aw = atlas.shape[1], atlas.shape[2]
     a32 = atlas.astype(jnp.uint32)

@@ -1,8 +1,3 @@
-from .tiling import (
-    ShardedRenderer,
-    make_mesh,
-    render_sharded,
-    render_sharded_pallas,
-)
+from .tiling import ShardedRenderer, make_mesh, render_sharded
 
-__all__ = ["ShardedRenderer", "make_mesh", "render_sharded", "render_sharded_pallas"]
+__all__ = ["ShardedRenderer", "make_mesh", "render_sharded"]

@@ -5,7 +5,7 @@ arrays seeded in RenderInit, reference: CudaRayTracer/src/Cuda/Kernel.cu:160-176
 and the rejection-sampling helpers RandomInUnitSphere / RandomInUnitDisk,
 reference: CudaRayTracer/src/Utils/Math.cuh:252-285).
 
-TPU-native design decisions:
+Design decisions:
   * No RNG state arrays: keys are derived on the fly with
     ``jax.random.fold_in(base, counter)`` per (frame, bounce, purpose) so a
     viewport resize never needs a re-seed pass and results are reproducible.

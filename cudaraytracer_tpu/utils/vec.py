@@ -1,10 +1,10 @@
 """Vector math on trailing-dim-3 arrays.
 
-TPU-native analog of the reference's device ``Vec3`` class
+Analog of the reference's device ``Vec3`` class
 (reference: CudaRayTracer/src/Utils/Math.cuh:16-229).  Instead of a scalar
 3-float struct per CUDA thread, every helper here operates on arrays shaped
-``[..., 3]`` so an entire ray wavefront is processed per call on the VPU.
-All functions are pure and jit/vmap/pallas friendly.
+``[..., 3]`` so an entire ray wavefront is processed per call.
+All functions are pure and jit/vmap friendly.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def length(v: jnp.ndarray) -> jnp.ndarray:
 
 
 def normalize(v: jnp.ndarray, eps: float = 1e-12) -> jnp.ndarray:
-    """Unit vector (reference UnitVector, Math.cuh). rsqrt keeps it one VPU op."""
+    """Unit vector (reference UnitVector, Math.cuh). rsqrt keeps it one elementwise op."""
     from jax import lax
 
     return v * lax.rsqrt(jnp.maximum(length_squared(v), eps))[..., None]

@@ -66,7 +66,7 @@ class Metrics:
             "accumulated_spp": self.accumulated_spp,
         }
 
-    # ---- profiler hooks (TPU analog of CUDA profiler integration) ----
+    # ---- profiler hooks (the analog of CUDA profiler integration) ----
     def start_trace(self, logdir: str = "/tmp/crt_trace"):
         import jax
 

@@ -4,15 +4,16 @@ The reference presents frames through CUDA->GL interop into an ImGui
 dockspace with Scene / Metrics / Options / Console panels and routes
 GLFW input to the fly camera (reference: CudaRayTracer/src/Cuda/
 CudaLayer.cpp:389-687, ImGui/ImGuiLayer.cpp:17-137, Core/Window.cpp:37-133).
-A TPU host has no GPU swapchain, so the equivalent here is a zero-dependency
+A compute node has no display, so the equivalent here is a zero-dependency
 HTTP viewer: the render loop stays in-process next to the device, and any
 browser becomes the display.
 
   * GET  /            the UI (canvas + panels, dark theme, dockable-ish)
-  * GET  /frame.jpg   current progressive framebuffer (JPEG q85 default —
-                      the UI's poll format: ~10x fewer bytes than PNG on
-                      noisy renders; ?scale=&q= knobs)
-  * GET  /frame.png   lossless framebuffer (PNG, row 0 = top)
+  * GET  /frame.jpg   current progressive framebuffer (JPEG q85 — the UI's
+                      poll format when Pillow is installed: ~10x fewer
+                      bytes than PNG on noisy renders; ?scale=&q= knobs)
+  * GET  /frame.png   lossless framebuffer (PNG, row 0 = top; standard
+                      library only — the UI polls it without Pillow)
   * GET  /state       metrics + scene tree + console + options as JSON
   * POST /input       {keys, shift, mouse_dx, mouse_dy, scroll} -> FlyCamera
                       (WASD/Space/Ctrl/C, right-drag look, wheel fov —
@@ -66,10 +67,6 @@ input[type=number]{width:56px} input[type=range]{width:90px;vertical-align:middl
   spp <input id=spp type=number min=1>
   <button onclick="setOpt()">apply</button>
   <button onclick="post('/options',{pause:true})">pause/resume</button>
- </div>
- <div><label title="converged tiles skip their wave loop; frame time scales with unconverged tiles">
-  <input id=adp type=checkbox onchange="post('/options',{adaptive:this.checked})"> adaptive sampling</label>
-  <span id=adpf style="color:#7aa2f7"></span>
  </div>
  <div><label title="display-time SVGF-lite denoiser (a-trous wavelet, G-buffer edge stopping); never touches the accumulator">
   <input id=dns type=checkbox onchange="post('/options',{denoise:this.checked})"> denoise</label>
@@ -151,8 +148,8 @@ async function frame(){const t0=performance.now();const img=new Image();
   ctx2.imageSmoothingEnabled=false;ctx2.drawImage(img,0,0,cv.width,cv.height);
   setTimeout(frame,50)};img.onerror=()=>setTimeout(frame,500);
  // JPEG poll: ~10x fewer bytes than PNG on noisy renders (q85 default);
- // /frame.png and /radiance.pfm stay available for lossless grabs
- img.src='/frame.jpg?scale='+fscale+'&t='+Date.now()}
+ // without Pillow on the server (/state says jpeg:false) poll the PNG
+ img.src=(S.options&&S.options.jpeg===false?'/frame.png':'/frame.jpg')+'?scale='+fscale+'&t='+Date.now()}
 frame();
 function esc(s){return s.replace(/&/g,'&amp;').replace(/</g,'&lt;')}
 let S={scene:[]},sceneSig='';
@@ -215,11 +212,9 @@ async function state(){try{const r=await fetch('/state?filter='+encodeURICompone
  if(document.activeElement.id!=='spp')document.getElementById('spp').value=s.options.spp;
  if(document.activeElement.id!=='apert')document.getElementById('apert').value=s.options.aperture;
  if(document.activeElement.id!=='fdist')document.getElementById('fdist').value=s.options.focus_dist;
- if(document.activeElement.id!=='adp')document.getElementById('adp').checked=!!s.options.adaptive;
  if(document.activeElement.id!=='dns')document.getElementById('dns').checked=!!s.options.denoise;
  if(document.activeElement.id!=='nee')document.getElementById('nee').checked=!!s.options.nee;
  if(document.activeElement.id!=='qmc')document.getElementById('qmc').checked=!!s.options.qmc;
- document.getElementById('adpf').textContent=s.options.adaptive&&s.options.active_tiles!=null?s.options.active_tiles+'% tiles active':'';
  for(const [el,v] of [['cx',s.camera.position[0]],['cy',s.camera.position[1]],['cz',s.camera.position[2]],
   ['cyaw',s.camera.yaw],['cpitch',s.camera.pitch],['cfov',s.camera.fov]])
   if(document.activeElement.id!==el)document.getElementById(el).value=v;
@@ -248,6 +243,13 @@ function uploadTex(id){const f=document.getElementById('texfile');f.value='';
 </script></body></html>"""
 
 from ..models.scenes import SCENES as _SCENE_REGISTRY
+
+try:  # JPEG encoding and image-file decoding are Pillow's (optional)
+    import PIL.Image  # noqa: F401
+
+    _HAVE_PILLOW = True
+except ImportError:
+    _HAVE_PILLOW = False
 
 
 def _mesh_mid(obj_id) -> int | None:
@@ -351,16 +353,12 @@ class ViewerServer:
                 "scenes": list(_SCENE_REGISTRY),
                 "aperture": round(float(rl.cfg.aperture), 4),
                 "focus_dist": round(float(rl.cfg.focus_dist), 4),
-                "adaptive": bool(getattr(rl.cfg, "adaptive", False)),
                 "denoise": bool(getattr(rl.cfg, "denoise", False)),
                 "nee": bool(getattr(rl.cfg, "nee", False)),
                 "qmc": bool(getattr(rl.cfg, "qmc", False)),
-                # one small device fetch per state poll, only in adaptive
-                # mode (the mask lives on device; see active_fraction)
-                "active_tiles": (
-                    round(rl._pallas.active_fraction() * 100.0, 1)
-                    if rl._pallas is not None and rl._pallas.adaptive
-                    else None),
+                # /frame.jpg needs Pillow; the page polls /frame.png
+                # when it is absent
+                "jpeg": _HAVE_PILLOW,
             },
         }
 
@@ -526,30 +524,6 @@ class ViewerServer:
         if "spp" in data:
             rl.cfg.spp = max(1, int(data["spp"]))
             rl.reset_accumulation()
-        if "adaptive" in data:
-            want = bool(data["adaptive"])
-            if want != bool(getattr(rl.cfg, "adaptive", False)):
-                rl.cfg.adaptive = want
-                if "adaptive_tau" in data:
-                    tau = float(data["adaptive_tau"])
-                    if math.isfinite(tau) and tau > 0:
-                        rl.cfg.adaptive_tau = tau
-                # adaptive is a STATIC of the jitted step: force a pipeline
-                # rebuild through the scene-resync path (same lever as
-                # scene load); accumulation restarts with it
-                rl._scene_version = -1
-                rtlog.rt_info("Adaptive sampling %s",
-                              "enabled" if want else "disabled")
-                if want and rl.cfg.accel != "pallas":
-                    # per-tile sample masks drive the megakernel's tile
-                    # grid; the XLA paths have no tile granularity to
-                    # mask, so the flag is inert there — say so instead
-                    # of silently logging "enabled" (same pattern as the
-                    # wavefront-NEE caveat)
-                    rtlog.rt_warn(
-                        "adaptive sampling drives the pallas megakernel; "
-                        "accel=%s renders every pixel each frame",
-                        rl.cfg.accel)
         if "denoise" in data:
             # DISPLAY-time toggle: the accumulator is untouched, so no
             # accumulation restart and no pipeline rebuild — the next
@@ -560,28 +534,20 @@ class ViewerServer:
         if "nee" in data:
             want = bool(data["nee"])
             if want != bool(getattr(rl.cfg, "nee", False)):
-                # the estimator switch is STATIC (has_nee compiles a
-                # different transport into the kernel/XLA path): rebuild
-                # BOTH the XLA Renderer (captures nee at construction)
-                # and, via the scene resync it forces, the pallas
-                # pipeline.  The wavefront cross-check path keeps the
-                # parity estimator regardless (ops/sampling.py docstring).
+                # the estimator switch is STATIC (it compiles a different
+                # transport into the renderer): rebuild the Renderer,
+                # which captures nee at construction
                 rl.cfg.nee = want
                 rl.rebuild_renderer()
                 rtlog.rt_info(
                     "Importance sampling (NEE) %s — pipeline recompiles "
                     "once (estimator is a static graph switch)",
                     "enabled" if want else "disabled")
-                if rl.cfg.accel == "wavefront":
-                    rtlog.rt_warn(
-                        "wavefront accel keeps the parity estimator; "
-                        "NEE applies to pallas/bvh/brute paths")
         if "qmc" in data:
             want = bool(data["qmc"])
             if want != bool(getattr(rl.cfg, "qmc", False)):
-                # the pixel sampler is STATIC (has_qmc compiles the R2
-                # jitter into the kernel/XLA raygen): rebuild both paths,
-                # same as the NEE estimator toggle.
+                # the pixel sampler is STATIC (it compiles the R2 jitter
+                # into the raygen): rebuild, same as the NEE toggle.
                 rl.cfg.qmc = want
                 rl.rebuild_renderer()
                 rtlog.rt_info(
@@ -655,8 +621,9 @@ class ViewerServer:
         primitive's (or whole mesh's) texture at the slot."""
         import io as _io
 
-        from PIL import Image
+        from ..utils.image import require_pillow
 
+        Image = require_pillow("image-texture upload")
         mid = _mesh_mid(prim_id)
         if mid is not None:
             scene = self.app.render_layer.scene
@@ -711,30 +678,29 @@ class ViewerServer:
     def frame_png(self, scale: int = 1) -> bytes:
         """Encode the current framebuffer; cached per (spp, scale) so
         repeated polls between progressive frames cost no device pull."""
-        from PIL import Image
+        from ..utils.image import encode_png
 
         rl = self.app.render_layer
         key = (rl._spp_done, rl._frame_index, int(scale))
         cached = getattr(self, "_png_cache", None)
         if cached is not None and cached[0] == key:
             return cached[1]
-        img = rl.framebuffer_rgba8(scale=int(scale))
-        buf = io.BytesIO()
-        Image.fromarray(img, "RGBA").save(buf, "PNG")
-        data = buf.getvalue()
+        # level 1: on a noisy frame zlib's higher levels cost several
+        # times the time for a few per cent fewer bytes
+        data = encode_png(rl.framebuffer_rgba8(scale=int(scale)), level=1)
         self._png_cache = (key, data)
         return data
 
     def frame_jpeg(self, scale: int = 1, quality: int = 85) -> bytes:
-        """JPEG framebuffer — the viewer's DEFAULT poll format (round 5):
-        on big noisy scenes the lossless PNG is both slow to encode and
-        ~10x the bytes (BASELINE.md "display fetch cost": terrain_big
-        720p PNG = 3.7 MB / ~190 ms per poll), while MC render noise is
-        exactly what JPEG's DCT quantization hides.  The progressive
-        accumulator is untouched — /frame.png and /radiance.pfm remain
-        the lossless paths.  Cached per (spp, frame, scale, q) like the
-        PNG."""
-        from PIL import Image
+        """JPEG framebuffer — the viewer's poll format when Pillow is
+        installed: on big noisy scenes the lossless PNG is several times
+        the bytes, while MC render noise is exactly what JPEG's DCT
+        quantization hides.  The progressive accumulator is untouched —
+        /frame.png and /radiance.pfm remain the lossless paths.  Cached
+        per (spp, frame, scale, q) like the PNG."""
+        from ..utils.image import require_pillow
+
+        Image = require_pillow("/frame.jpg")
 
         rl = self.app.render_layer
         quality = max(1, min(100, int(quality)))
@@ -877,6 +843,7 @@ class ViewerServer:
 
     def start(self):
         self._httpd = ThreadingHTTPServer((self.host, self.port), self.make_handler())
+        self.port = self._httpd.server_address[1]  # port 0 = ephemeral
         t = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         t.start()
         rtlog.rt_info("Viewer at http://%s:%d", self.host, self.port)

@@ -2,7 +2,8 @@
 write an animated GIF — exercises the progressive accumulate/reset path the
 way a user dragging the mouse does.
 
-Usage: python examples/orbit_animation.py [--tpu] [--frames 24]
+Usage: python examples/orbit_animation.py [--cpu] [--frames 24]
+Needs Pillow (GIF writing).
 """
 
 from __future__ import annotations
@@ -17,20 +18,21 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="render on the CPU (default: require a GPU)")
     ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--height", type=int, default=144)
     args = ap.parse_args()
 
-    import jax
+    from cudaraytracer_tpu.utils.image import require_pillow
+    from cudaraytracer_tpu.utils.runtime import (enable_compile_cache,
+                                                 select_backend)
 
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
-
-    import numpy as np
-    from PIL import Image
+    select_backend(cpu=args.cpu)
+    enable_compile_cache()
+    Image = require_pillow("writing the GIF")
 
     from cudaraytracer_tpu.config import RenderConfig
     from cudaraytracer_tpu.viewer.app import Application

@@ -1,6 +1,7 @@
-"""Render every built-in scene to PNG (small, CPU-friendly).
+"""Render every built-in scene to PNG through the production path (the
+BVH with the closest-hit kernel on a GPU).
 
-Usage: python examples/render_gallery.py [--tpu] [--width 320] [--spp 16]
+Usage: python examples/render_gallery.py [--cpu] [--width 320] [--spp 16]
 Writes examples/gallery/<scene>.png.
 """
 
@@ -16,7 +17,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="render on the CPU (default: require a GPU)")
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=180)
     ap.add_argument("--spp", type=int, default=16)
@@ -28,151 +30,42 @@ def main():
                          "(writes <scene>_nee.png)")
     args = ap.parse_args()
 
-    import jax
+    from cudaraytracer_tpu.utils.runtime import (enable_compile_cache,
+                                                 select_backend)
 
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
+    select_backend(cpu=args.cpu)
+    enable_compile_cache()
+
+    import numpy as np
 
     from cudaraytracer_tpu.models import scenes
-    from cudaraytracer_tpu.models.renderer import Renderer
     from cudaraytracer_tpu.models.bvh import build_bvh
+    from cudaraytracer_tpu.models.renderer import Renderer
     from cudaraytracer_tpu.ops.pack import pack_rgba8
     from cudaraytracer_tpu.utils import rng as rngu
     from cudaraytracer_tpu.utils.image import save_png
 
     outdir = os.path.join(os.path.dirname(__file__), "gallery")
     os.makedirs(outdir, exist_ok=True)
-
-    import numpy as np
-
-    import jax
-
-    on_tpu = jax.default_backend() == "tpu"
-    from cudaraytracer_tpu.ops.pallas.render_kernel import fits_megakernel
-
     for name in scenes.SCENES:
         if args.only and name != args.only:
             continue
         cam_model = scenes.camera_model_for(name)
         make_scene, make_cam = scenes.SCENES[name]
         scene = make_scene()
-        cam = make_cam()
-        sd = scene.device()
-        # beyond the megakernel SMEM budget (terrain_big 20k tris,
-        # book2_final's all-flags table): TPU streams block tiles from
-        # HBM at full spp; CPU would take O(tens of minutes) — skip
-        oversized = not fits_megakernel(scene.num_active,
-                                        scene.has_vertex_attrs)
-        if oversized and not on_tpu:
-            print(f"{name}: skipped on cpu (beyond-SMEM scene; "
-                  f"render with --tpu)")
-            continue
-        spp = args.spp
         t0 = time.perf_counter()
-        if on_tpu:
-            # the fast path: Pallas megakernel, all spp in one launch
-            from cudaraytracer_tpu.ops.pallas.render_kernel import (
-                pack_camera, pack_scene_tables, pallas_render_sample)
-
-            import jax.numpy as jnp
-
-            has_images = bool(
-                (scene.tex_type[scene.active_indices()] == 2).any())
-            has_tris = bool(
-                (scene.prim_type[scene.active_indices()] == 4).any())
-            has_noise = bool(
-                (scene.tex_type[scene.active_indices()] == 3).any())
-            has_media = bool(
-                (scene.mat_type[scene.active_indices()] == 4).any())
-            has_motion = bool(
-                (scene.velocity[scene.active_indices()] != 0).any())
-            has_boxm = bool(
-                (scene.prim_type[scene.active_indices()] == 5).any())
-            _idx0 = scene.active_indices()
-            has_rotm = bool(
-                (scene.edge2[_idx0][scene.prim_type[_idx0] == 5, 0]
-                 != 0).any())
-            t = pack_scene_tables(scene, with_uv=has_images)
-            # beyond-SMEM scenes render on the HBM-streamed layout —
-            # bit-identical radiance, full gallery spp (this is how the
-            # checked-in terrain_big.png and book2_final.png are made)
-            from cudaraytracer_tpu.ops.pallas.render_kernel import (
-                pack_stream_tiles)
-
-            stream_b, n_sup, tile_w = 0, t.n_super, 256
-            raw = (t.S, t.P, t.clusters, t.supers)
-            if not fits_megakernel(scene.num_active, t.vattrs, tables=t):
-                st = pack_stream_tiles(t)
-                stream_b, n_sup, tile_w = st.block_b, st.n_blocks, 128
-                raw = (st.tiles, st.block_boxes, st.clusters, st.supers)
-            tabs = tuple(jnp.asarray(x) for x in raw)
-            cam_vec = pack_camera(cam, sd, args.width, args.height, 1e-3)
-            if args.nee:
-                from cudaraytracer_tpu.ops.sampling import pack_lights_np
-
-                cam_vec = jnp.concatenate([
-                    cam_vec, jnp.asarray(pack_lights_np(scene))])
-            if has_images:
-                # image-texture lanes park once BOTH deferral records
-                # are consumed (counts per launch in [1, 2] here), so
-                # offline quality uses spp launches of 1 for exactly
-                # uniform per-pixel convergence — same total cost under
-                # in-kernel path regeneration
-                import jax as _jax
-
-                atlas = jnp.asarray(scene.atlas)
-                tex_hw = jnp.asarray(scene.tex_hw)
-
-                # device arrays enter jit as arguments, never closures (a
-                # captured device array is fetched device->host at lowering)
-                @_jax.jit
-                def step(tabs, cam_vec, seed, atlas, tex_hw):
-                    return pallas_render_sample(
-                        *tabs, n_sup, cam_vec, seed, args.depth,
-                        width=args.width, height=args.height,
-                        camera_model=cam_model, spp=1, rr_start=2,
-                        tile_w=tile_w, stream_b=stream_b,
-                        atlas=atlas, tex_hw=tex_hw, has_tris=has_tris,
-                        has_vattrs=t.vattrs, has_noise=has_noise,
-                        has_media=has_media, has_motion=has_motion,
-                        has_boxm=has_boxm, has_rotm=has_rotm,
-                        has_nee=args.nee,
-                    )
-
-                acc = cnt = 0.0
-                for s in range(args.spp):
-                    img_s, counts = step(tabs, cam_vec, jnp.int32(7 + s),
-                                         atlas, tex_hw)
-                    acc = acc + img_s
-                    cnt = cnt + counts
-                # sum/count ratio (Wald-consistent), rescaled to the SUM
-                # convention pack_rgba8 divides by
-                rad = (acc / jnp.maximum(cnt, 1.0)[..., None]
-                       * args.spp)[: args.height, : args.width]
-            else:
-                rad = pallas_render_sample(
-                    *tabs, n_sup, cam_vec, 7, args.depth,
-                    width=args.width, height=args.height,
-                    camera_model=cam_model, spp=args.spp, rr_start=2,
-                    tile_w=tile_w, stream_b=stream_b,
-                    has_tris=has_tris, has_vattrs=t.vattrs,
-                    has_noise=has_noise, has_media=has_media,
-                    has_motion=has_motion, has_boxm=has_boxm,
-                    has_rotm=has_rotm, has_nee=args.nee,
-                )[: args.height, : args.width]
-        else:
-            r = Renderer(args.width, args.height, camera_model=cam_model,
-                         nee=args.nee)
-            bvh = build_bvh(scene)
-            rad = r.render(sd, cam, rngu.base_key(), spp=spp,
-                           max_depth=args.depth, bvh=bvh)
-        img = np.asarray(pack_rgba8(rad, spp))
+        r = Renderer(args.width, args.height, camera_model=cam_model,
+                     nee=args.nee)
+        rad = r.render(scene.device(), make_cam(), rngu.base_key(),
+                       spp=args.spp, max_depth=args.depth,
+                       bvh=build_bvh(scene))
+        img = np.asarray(pack_rgba8(rad, args.spp))
         dt = time.perf_counter() - t0
         suffix = "_nee" if args.nee else ""
         path = os.path.join(outdir, f"{name}{suffix}.png")
         # two_plane framebuffers are bottom-up; look_at is top-down
         save_png(path, img, flip_vertical=(cam_model == "two_plane"))
-        print(f"{name}: {dt:.1f}s -> {path}")
+        print(f"{name}: {dt:.1f}s (compile included) -> {path}")
 
 
 if __name__ == "__main__":

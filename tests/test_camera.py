@@ -95,36 +95,3 @@ def test_fly_camera_yaw_look():
     np.testing.assert_allclose(c.orientation, (0, 0, -1), atol=1e-6)
     c.process_mouse(900.0, 0.0)  # +90 deg yaw at sensitivity 0.1
     np.testing.assert_allclose(c.orientation, (1, 0, 0), atol=1e-5)
-
-
-def test_pack_camera_np_matches_jnp():
-    """pack_camera_np (the host-side per-frame packer the viewer uses) must
-    never drift from pack_camera (the jnp packer used by bench/tests)."""
-    import types
-
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cudaraytracer_tpu.models.camera import make_camera_params
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera, pack_camera_np)
-
-    rnd = np.random.RandomState(3)
-    for _ in range(5):
-        cam = make_camera_params(
-            origin=rnd.uniform(-5, 5, 3),
-            forward=rnd.uniform(-1, 1, 3) + [0.01, 0.0, 0.0],
-            fov_deg=float(rnd.uniform(10, 90)),
-            near=float(rnd.uniform(0.05, 1.0)),
-            far=float(rnd.uniform(5, 20)),
-            aperture=float(rnd.uniform(0, 0.3)),
-            focus_dist=float(rnd.uniform(1, 15)),
-        )
-        bg0 = rnd.uniform(0, 1, 3).astype(np.float32)
-        bg1 = rnd.uniform(0, 1, 3).astype(np.float32)
-        sky = types.SimpleNamespace(
-            background_start=jnp.asarray(bg0), background_end=jnp.asarray(bg1))
-        w, h, tmin = 320, 180, 1e-3
-        a = np.asarray(pack_camera(cam, sky, w, h, tmin))
-        b = pack_camera_np(cam, bg0, bg1, w, h, tmin)
-        np.testing.assert_allclose(a, b, rtol=2e-6, atol=2e-6)

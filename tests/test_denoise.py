@@ -159,7 +159,7 @@ def test_render_layer_denoised_display():
 
     cfg = RenderConfig(width=32, height=24, max_depth=3, scene="default",
                        accel="bvh", denoise=True, denoise_iters=2,
-                       progressive=True, progressive_spp=1)
+                       progressive=True)
     app = Application(cfg)
     rl = app.setup_default_layers()
     app.run(max_frames=2)

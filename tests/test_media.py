@@ -5,19 +5,10 @@ volumes): a sphere whose material is ISOTROPIC is a medium, not a
 surface — rays entering it scatter isotropically at a distance sampled
 from exp(-density * s).  Wired through every path: the XLA brute scan
 (ops/intersect.py medium branch), the BVH accel (media live OUTSIDE the
-tree, combined by closest hit), the megakernel (ptype-5 columns, kind-4
-clusters, density in the S_DENS row) in BOTH table layouts, the oracle,
+tree, combined by closest hit — with either traversal, XLA or the
+closest-hit kernel), the G-buffer (which sees through them), the oracle,
 the scene registry ("smoke") and save/load.
-
-Megakernel validation note: the interpret-mode PRNG is wave-insensitive
-(CLAUDE.md), which CORRELATES the per-wave medium distance draws and
-biases multi-scatter fog dark in interpret runs — measured on REAL v5e
-the kernel matches XLA to MC noise (64 spp: mean block err 0.004, max
-0.042; streamed bit-identical, run banked in BASELINE.md).  Interpret
-tests below therefore check structure/identities, not tight radiance.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -122,143 +113,33 @@ def test_bvh_accel_matches_brute():
     assert np.abs(blk_b - blk_a).mean() < 0.05
 
 
-def _pallas_render(sc, cam, W, H, D, seed, streamed=False, spp=1,
-                   force_boxm=None):
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera_np, pack_scene_tables, pack_stream_tiles,
-        pallas_render_sample)
-
-    t = pack_scene_tables(sc)
-    cam_vec = jnp.asarray(pack_camera_np(
-        cam, sc.background_start, sc.background_end, W, H, 1e-3))
-    # BOX-bounded media compile the slab-chord branch (STATIC flag,
-    # mirroring _PallasPipeline); non-zero yaw compiles the ROTATED chord
-    idx0 = sc.active_indices()
-    has_boxm = bool((sc.prim_type[idx0] == 5).any())
-    if force_boxm is not None:
-        has_boxm = force_boxm
-    has_rotm = bool(
-        (sc.edge2[idx0][sc.prim_type[idx0] == 5, 0] != 0).any())
-    kw = dict(width=W, height=H, camera_model="look_at", tile_h=16,
-              tile_w=128, has_rects=True, cluster=t.cluster,
-              super_=t.super_, has_media=True, has_boxm=has_boxm,
-              has_rotm=has_rotm, spp=spp)
-    with pltpu.force_tpu_interpret_mode():
-        if streamed:
-            st = pack_stream_tiles(t)
-            stabs = tuple(jnp.asarray(x) for x in
-                          (st.tiles, st.block_boxes, st.clusters, st.supers))
-            return np.asarray(pallas_render_sample(
-                *stabs, st.n_blocks, cam_vec, seed, D,
-                stream_b=st.block_b, **kw))
-        tabs = tuple(jnp.asarray(x) for x in
-                     (t.S, t.P, t.clusters, t.supers))
-        return np.asarray(pallas_render_sample(
-            *tabs, t.n_super, cam_vec, seed, D, **kw))
-
-
-@pytest.mark.slow
-def test_pallas_medium_structure_and_stream_identity():
-    """Interpret-mode structural checks (tight radiance runs on hardware,
-    module docstring): the megakernel fog image is finite, lands in the
-    right brightness class (fog glows above the dark background, the
-    embedded metal sphere is NOT directly visible as a sharp silhouette),
-    and the HBM-streamed layout reproduces the resident one BIT-FOR-BIT
-    (the medium's per-prim uniform hashes the prim's CENTER, not its
-    column index, exactly so the two layouts cannot drift)."""
-    sc, cam = _small_smoke()
-    W, H, D = 128, 32, 6
-    a = _pallas_render(sc, cam, W, H, D, seed=3)
-    b = _pallas_render(sc, cam, W, H, D, seed=3, streamed=True)
-    assert np.isfinite(a).all()
-    assert np.abs(a - b).max() == 0.0  # resident == streamed, exactly
-    img = a[:H, :W]
-    # the scene renders with real structure: light + fog glow well above
-    # black, and the frame is not a constant (media actually scatter)
-    assert img.mean() > 0.02
-    assert img.std() > 0.02
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(not os.environ.get("CRT_TPU_TESTS"),
-                    reason="tight medium radiance needs real-TPU PRNG "
-                           "(interpret draws are wave-correlated)")
-def test_pallas_medium_matches_xla_tpu():
-    """REAL-chip contract (banked run in BASELINE.md): 64-spp megakernel
-    fog == XLA to MC noise.  Subprocess keeps this process off the TPU
-    (the conftest pins the test process to CPU)."""
-    import subprocess
-    import sys
-
-    code = r"""
-import numpy as np, jax.numpy as jnp
-import sys
-sys.path.insert(0, "tests")
-from test_media import _small_smoke
-from cudaraytracer_tpu.models.renderer import render_radiance
-from cudaraytracer_tpu.utils import rng as rngu
-from cudaraytracer_tpu.ops.pallas.render_kernel import (
-    pack_camera_np, pack_scene_tables, pallas_render_sample)
-
-sc, cam = _small_smoke()
-W, H, D = 128, 32, 8
-t = pack_scene_tables(sc)
-tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-cam_vec = jnp.asarray(pack_camera_np(
-    cam, sc.background_start, sc.background_end, W, H, 1e-3))
-img = pallas_render_sample(
-    *tabs, t.n_super, cam_vec, 7, D, spp=64, width=W, height=H,
-    camera_model="look_at", tile_h=16, tile_w=128, has_rects=True,
-    cluster=t.cluster, super_=t.super_, has_media=True)
-pal = np.asarray(img)[:H, :W] / 64
-xla = np.asarray(render_radiance(
-    sc.device(), cam, rngu.base_key(), 64, D, width=W, height=H,
-    camera_model="look_at")) / 64
-pb = pal.reshape(H // 8, 8, W // 8, 8, 3).mean((1, 3))
-xb = xla.reshape(H // 8, 8, W // 8, 8, 3).mean((1, 3))
-assert np.abs(pb - xb).mean() < 0.02, np.abs(pb - xb).mean()
-assert abs(pal.mean() - xla.mean()) < 0.01
-print("OK")
-"""
-    out = subprocess.run([sys.executable, "-c", code], cwd=".",
-                         capture_output=True, text=True, timeout=1200)
-    assert out.returncode == 0 and "OK" in out.stdout, (
-        out.stdout[-2000:], out.stderr[-2000:])
-
-
-def test_gbuffer_sees_through_media():
-    """Feature buffers ignore fog in BOTH G-buffer paths: depth/normal
+@pytest.mark.parametrize("traversal", ["brute", "xla", "interpret"])
+def test_gbuffer_sees_through_media(traversal):
+    """Feature buffers ignore fog on every first-hit path (brute scan, BVH
+    with the XLA traversal, BVH with the closest-hit kernel): depth/normal
     come from the surfaces behind it, so the denoiser's edge stopping is
     never poisoned by a stochastic fog 'surface'."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.ops.gbuffer import primary_features
-    from test_gbuffer_kernel import _pallas_gb
+    from cudaraytracer_tpu.models.bvh import build_bvh
+    from cudaraytracer_tpu.ops.gbuffer import gbuffer_step
 
     sc, cam = _small_smoke()
-    W, H = 128, 32
-    gb = primary_features(sc.device(), cam, width=W, height=H,
-                          camera_model="look_at")
-    d_x = np.asarray(gb.depth)
-    # ground truth: the SAME scene with the fog deleted — the feature
-    # buffers must be IDENTICAL (the fog boundary never registers)
+    W, H = 32, 16
+    step = gbuffer_step(W, H, "look_at",
+                        traversal=None if traversal == "brute" else traversal)
+    bvh = None if traversal == "brute" else build_bvh(sc)
+    gb = step(sc.device(), cam, bvh)
+    # ground truth: the SAME scene with the fog deleted, brute first hit —
+    # the feature buffers must match (the fog boundary never registers)
     sc2, _ = _small_smoke()
     for k in sc2.active_indices():
         if int(sc2.mat_type[k]) == ISOTROPIC:
             sc2.delete(int(k))
-    gb2 = primary_features(sc2.device(), cam, width=W, height=H,
-                           camera_model="look_at")
-    np.testing.assert_array_equal(d_x, np.asarray(gb2.depth))
-    np.testing.assert_array_equal(np.asarray(gb.normal),
-                                  np.asarray(gb2.normal))
-    with pltpu.force_tpu_interpret_mode():
-        n_p, a_p, d_p = _pallas_gb(sc, cam, "look_at", W, H)
-    assert ((d_x > 0) != (d_p > 0)).mean() == 0.0
-    both = (d_x > 0) & (d_p > 0)
-    np.testing.assert_allclose(d_p[both], d_x[both], rtol=5e-4, atol=1e-4)
+    gb2 = gbuffer_step(W, H, "look_at")(sc2.device(), cam)
+    d, d2 = np.asarray(gb.depth), np.asarray(gb2.depth)
+    assert ((d > 0) != (d2 > 0)).mean() == 0.0
+    np.testing.assert_allclose(d, d2, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(gb.normal), np.asarray(gb2.normal),
+                               atol=1e-4)
 
 
 def test_media_save_load_roundtrip(tmp_path):
@@ -275,55 +156,39 @@ def test_media_save_load_roundtrip(tmp_path):
 
 
 def test_viewer_smoke_scene_e2e():
-    """The registered smoke scene renders through the viewer's pallas
-    path (has_media compiled in) and the AOV export sees through fog."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    """The registered smoke scene renders through the viewer's BVH path
+    (media in the side pass) and the AOV export sees through fog."""
     from cudaraytracer_tpu.config import RenderConfig
     from cudaraytracer_tpu.viewer.app import Application
 
-    cfg = RenderConfig(width=128, height=16, scene="smoke", accel="pallas",
+    cfg = RenderConfig(width=32, height=16, scene="smoke", accel="auto",
                        progressive=True, max_depth=4,
                        camera_model="look_at")
     app = Application(cfg)
-    with pltpu.force_tpu_interpret_mode():
-        rl = app.setup_default_layers()
-        assert rl._pallas is not None and rl._pallas.has_media
-        app.run(max_frames=2)
-        img = rl.framebuffer_rgba8()
-        aov = rl.aov()
+    rl = app.setup_default_layers()
+    assert rl.cfg.accel == "bvh" and rl._sd.has_media
+    app.run(max_frames=2)
+    img = rl.framebuffer_rgba8()
+    aov = rl.aov()
     app.close()
     assert img[..., :3].sum() > 0 and np.isfinite(img[..., :3]).all()
-    assert np.isfinite(aov["depth"]).all()
+    assert np.isfinite(aov["depth"]).all() and (aov["depth"] > 0).any()
 
 
 @pytest.mark.slow
 def test_media_sharded_multichip():
-    """Media through the multi-chip sharded megakernel: an 8-device
-    rows x samples mesh on the CPU backend (interpret kernels) renders
-    the smoke scene finite and band-consistent — the volumes feature
-    composes with the scaling story."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera_np, pack_scene_tables)
-    from cudaraytracer_tpu.parallel import make_mesh, render_sharded_pallas
+    """Media through the sharded renderer with the BVH: an 8-device rows x
+    samples mesh on the CPU backend renders the smoke scene finite and
+    lit — the volumes feature composes with the scaling story."""
+    from cudaraytracer_tpu.models.bvh import build_bvh
+    from cudaraytracer_tpu.parallel import make_mesh, render_sharded
 
     sc, cam = _small_smoke()
-    t = pack_scene_tables(sc)
     mesh = make_mesh(n_rows=4, n_samples=2)
-    W, H = 128, 64
-    cam_vec = jnp.asarray(pack_camera_np(
-        cam, sc.background_start, sc.background_end, W, H, 1e-3))
-    tables = tuple(map(jnp.asarray, (t.S, t.P, t.clusters, t.supers)))
-    with pltpu.force_tpu_interpret_mode():
-        out = render_sharded_pallas(
-            tables, t.n_super, cam_vec, 7, 4,
-            width=W, height=H, mesh=mesh, camera_model="look_at",
-            tile_h=16, tile_w=128, cluster=t.cluster, super_=t.super_,
-            has_media=True)
-        out.block_until_ready()
+    W, H = 32, 16
+    out = render_sharded(sc.device(), cam, rngu.base_key(), 2, 4, width=W,
+                         height=H, mesh=mesh, camera_model="look_at",
+                         bvh=build_bvh(sc))
     img = np.asarray(out) / 2  # psum over 2 sample streams
     assert img.shape == (H, W, 3)
     assert np.isfinite(img).all()

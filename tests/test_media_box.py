@@ -6,20 +6,10 @@ prim-type BOX whose material is ALWAYS ISOTROPIC — an invisible
 axis-aligned boundary whose interior scatters isotropically at a
 distance sampled from exp(-density * s).  Wired through every path that
 carries sphere media: the XLA brute scan (ops/intersect.py
-_medium_box_block_t), the BVH accel (media live OUTSIDE the tree), the
-megakernel (ptype-5 medium columns whose S_HA > 0 flags the box slab
-chord; sphere-medium columns keep S_HA = -1 and bit-identical math) in
-BOTH table layouts, the oracle, the scene registry ("cornell_smoke")
-and save/load.  The wavefront cross-check path rejects ALL media
-(models/wavefront.py:244) — boxes inherit that documented scope.
-
-Megakernel validation note (same as tests/test_media.py): the
-interpret-mode PRNG is wave-insensitive, so interpret tests check
-structure and identities, not tight radiance; the real-chip radiance
-contract runs under CRT_TPU_TESTS.
+_medium_box_block_t), the BVH accel (media live OUTSIDE the tree, with
+either traversal), the G-buffer (which sees through them), the oracle, the
+scene registry ("cornell_smoke") and save/load.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -36,8 +26,7 @@ import oracle
 
 def _small_box_smoke():
     """The test_media smoke scene with the fog SPHERE swapped for a fog
-    BOX (and a glow background so interpret-mode structure checks are
-    not vacuous)."""
+    BOX (and a glow background so structure checks are not vacuous)."""
     sc = Scene(capacity=16, background_start=(0.05, 0.05, 0.07),
                background_end=(0.05, 0.05, 0.07))
     sc.add_xz_rect((0, -1, 0), 40, 40, mat_type=LAMBERTIAN,
@@ -150,115 +139,32 @@ def test_bvh_accel_matches_brute_box():
     assert np.abs(blk_b - blk_a).mean() < 0.05
 
 
-@pytest.mark.slow
-def test_pallas_box_medium_structure_and_stream_identity():
-    """Interpret-mode structural checks (module docstring): the
-    megakernel box-fog image is finite with real structure, and the
-    HBM-streamed layout reproduces the resident one BIT-FOR-BIT (the
-    medium uniform hashes the prim CENTER, layout-independent)."""
-    from test_media import _pallas_render
+@pytest.mark.parametrize("yaw", [0.0, 0.6])
+@pytest.mark.parametrize("traversal", ["brute", "xla", "interpret"])
+def test_gbuffer_sees_through_box_media(traversal, yaw):
+    """Feature buffers ignore box fog (axis-aligned and yaw-rotated) on
+    every first-hit path — brute scan, BVH with the XLA traversal, BVH
+    with the closest-hit kernel: depth/normal come from the surfaces
+    behind it."""
+    from cudaraytracer_tpu.models.bvh import build_bvh
+    from cudaraytracer_tpu.ops.gbuffer import gbuffer_step
 
-    sc, cam = _small_box_smoke()
-    W, H, D = 128, 32, 6
-    a = _pallas_render(sc, cam, W, H, D, seed=3)
-    b = _pallas_render(sc, cam, W, H, D, seed=3, streamed=True)
-    assert np.isfinite(a).all()
-    assert np.abs(a - b).max() == 0.0  # resident == streamed, exactly
-    img = a[:H, :W]
-    assert img.mean() > 0.02
-    assert img.std() > 0.02
-
-
-@pytest.mark.slow
-def test_pallas_sphere_media_bit_identical_with_box_branch():
-    """The box-chord branch is select-gated per COLUMN (S_HA > 0) on top
-    of the STATIC has_boxm flag: force-compiling it into a sphere-only
-    fog scene must not move a single bit — sphere-medium columns select
-    exactly the historical operands (and sphere-only scenes normally
-    skip the slab math entirely, has_boxm=False)."""
-    from test_media import _pallas_render, _small_smoke
-
-    sc, cam = _small_smoke()
-    W, H, D = 128, 32, 6
-    a = _pallas_render(sc, cam, W, H, D, seed=3, force_boxm=False)
-    b = _pallas_render(sc, cam, W, H, D, seed=3, force_boxm=True)
-    assert np.abs(a - b).max() == 0.0
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(not os.environ.get("CRT_TPU_TESTS"),
-                    reason="tight medium radiance needs real-TPU PRNG "
-                           "(interpret draws are wave-correlated)")
-def test_pallas_box_medium_matches_xla_tpu():
-    """REAL-chip contract: 64-spp megakernel box fog == XLA to MC noise.
-    Subprocess keeps this process off the TPU."""
-    import subprocess
-    import sys
-
-    code = r"""
-import numpy as np, jax.numpy as jnp
-import sys
-sys.path.insert(0, "tests")
-from test_media_box import _small_box_smoke
-from cudaraytracer_tpu.models.renderer import render_radiance
-from cudaraytracer_tpu.utils import rng as rngu
-from cudaraytracer_tpu.ops.pallas.render_kernel import (
-    pack_camera_np, pack_scene_tables, pallas_render_sample)
-
-sc, cam = _small_box_smoke()
-W, H, D = 128, 32, 8
-t = pack_scene_tables(sc)
-tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-cam_vec = jnp.asarray(pack_camera_np(
-    cam, sc.background_start, sc.background_end, W, H, 1e-3))
-img = pallas_render_sample(
-    *tabs, t.n_super, cam_vec, 7, D, spp=64, width=W, height=H,
-    camera_model="look_at", tile_h=16, tile_w=128, has_rects=True,
-    cluster=t.cluster, super_=t.super_, has_media=True)
-pal = np.asarray(img)[:H, :W] / 64
-xla = np.asarray(render_radiance(
-    sc.device(), cam, rngu.base_key(), 64, D, width=W, height=H,
-    camera_model="look_at")) / 64
-pb = pal.reshape(H // 8, 8, W // 8, 8, 3).mean((1, 3))
-xb = xla.reshape(H // 8, 8, W // 8, 8, 3).mean((1, 3))
-assert np.abs(pb - xb).mean() < 0.02, np.abs(pb - xb).mean()
-assert abs(pal.mean() - xla.mean()) < 0.01
-print("OK")
-"""
-    out = subprocess.run([sys.executable, "-c", code], cwd=".",
-                         capture_output=True, text=True, timeout=1200)
-    assert out.returncode == 0 and "OK" in out.stdout, (
-        out.stdout[-2000:], out.stderr[-2000:])
-
-
-def test_gbuffer_sees_through_box_media():
-    """Feature buffers ignore box fog in BOTH G-buffer paths (the XLA
-    brute pass threads no media kwargs; the megakernel pass skips kind-4
-    medium clusters): depth/normal come from the surfaces behind it."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.ops.gbuffer import primary_features
-    from test_gbuffer_kernel import _pallas_gb
-
-    sc, cam = _small_box_smoke()
-    W, H = 128, 32
-    gb = primary_features(sc.device(), cam, width=W, height=H,
-                          camera_model="look_at")
-    d_x = np.asarray(gb.depth)
+    sc, cam = _rotated_box_smoke(yaw) if yaw else _small_box_smoke()
+    W, H = 32, 16
+    step = gbuffer_step(W, H, "look_at",
+                        traversal=None if traversal == "brute" else traversal)
+    gb = step(sc.device(), cam,
+              None if traversal == "brute" else build_bvh(sc))
     sc2, _ = _small_box_smoke()
     for k in sc2.active_indices():
         if int(sc2.mat_type[k]) == ISOTROPIC:
             sc2.delete(int(k))
-    gb2 = primary_features(sc2.device(), cam, width=W, height=H,
-                           camera_model="look_at")
-    np.testing.assert_array_equal(d_x, np.asarray(gb2.depth))
-    np.testing.assert_array_equal(np.asarray(gb.normal),
-                                  np.asarray(gb2.normal))
-    with pltpu.force_tpu_interpret_mode():
-        n_p, a_p, d_p = _pallas_gb(sc, cam, "look_at", W, H)
-    assert ((d_x > 0) != (d_p > 0)).mean() == 0.0
-    both = (d_x > 0) & (d_p > 0)
-    np.testing.assert_allclose(d_p[both], d_x[both], rtol=5e-4, atol=1e-4)
+    gb2 = gbuffer_step(W, H, "look_at")(sc2.device(), cam)
+    d, d2 = np.asarray(gb.depth), np.asarray(gb2.depth)
+    assert ((d > 0) != (d2 > 0)).mean() == 0.0
+    np.testing.assert_allclose(d, d2, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(gb.normal), np.asarray(gb2.normal),
+                               atol=1e-4)
 
 
 def _rotated_box_smoke(yaw=0.6):
@@ -383,74 +289,6 @@ def test_rotated_bvh_accel_matches_brute():
     assert np.abs(blk_b - blk_a).mean() < 0.05
 
 
-@pytest.mark.slow
-def test_pallas_rotated_box_structure_and_stream_identity():
-    """Interpret-mode: the megakernel rotated-box fog (has_rotm, cos/sin
-    in S rows 13/14) renders finite with structure, resident ==
-    HBM-streamed BIT-FOR-BIT, and differs from the axis-aligned render
-    (rotation is actually compiled in)."""
-    from test_media import _pallas_render
-
-    sc, cam = _rotated_box_smoke()
-    W, H, D = 128, 32, 6
-    a = _pallas_render(sc, cam, W, H, D, seed=3)
-    b = _pallas_render(sc, cam, W, H, D, seed=3, streamed=True)
-    assert np.isfinite(a).all()
-    assert np.abs(a - b).max() == 0.0
-    img = a[:H, :W]
-    assert img.mean() > 0.02 and img.std() > 0.02
-    sc0, _ = _small_box_smoke()
-    a0 = _pallas_render(sc0, cam, W, H, D, seed=3)
-    assert np.abs(a - a0).max() > 1e-3  # the yaw visibly moves the fog
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(not os.environ.get("CRT_TPU_TESTS"),
-                    reason="tight medium radiance needs real-TPU PRNG "
-                           "(interpret draws are wave-correlated)")
-def test_pallas_rotated_box_matches_xla_tpu():
-    """REAL-chip contract for the ROTATED chord: 64-spp megakernel
-    rotated box fog == XLA to MC noise."""
-    import subprocess
-    import sys
-
-    code = r"""
-import numpy as np, jax.numpy as jnp
-import sys
-sys.path.insert(0, "tests")
-from test_media_box import _rotated_box_smoke
-from cudaraytracer_tpu.models.renderer import render_radiance
-from cudaraytracer_tpu.utils import rng as rngu
-from cudaraytracer_tpu.ops.pallas.render_kernel import (
-    pack_camera_np, pack_scene_tables, pallas_render_sample)
-
-sc, cam = _rotated_box_smoke()
-W, H, D = 128, 32, 8
-t = pack_scene_tables(sc)
-tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-cam_vec = jnp.asarray(pack_camera_np(
-    cam, sc.background_start, sc.background_end, W, H, 1e-3))
-img = pallas_render_sample(
-    *tabs, t.n_super, cam_vec, 7, D, spp=64, width=W, height=H,
-    camera_model="look_at", tile_h=16, tile_w=128, has_rects=True,
-    cluster=t.cluster, super_=t.super_, has_media=True, has_boxm=True,
-    has_rotm=True)
-pal = np.asarray(img)[:H, :W] / 64
-xla = np.asarray(render_radiance(
-    sc.device(), cam, rngu.base_key(), 64, D, width=W, height=H,
-    camera_model="look_at")) / 64
-pb = pal.reshape(H // 8, 8, W // 8, 8, 3).mean((1, 3))
-xb = xla.reshape(H // 8, 8, W // 8, 8, 3).mean((1, 3))
-assert np.abs(pb - xb).mean() < 0.02, np.abs(pb - xb).mean()
-assert abs(pal.mean() - xla.mean()) < 0.01
-print("OK")
-"""
-    out = subprocess.run([sys.executable, "-c", code], cwd=".",
-                         capture_output=True, text=True, timeout=1200)
-    assert out.returncode == 0 and "OK" in out.stdout, (
-        out.stdout[-2000:], out.stderr[-2000:])
-
-
 def test_rotated_box_save_load_and_update(tmp_path):
     """yaw persists through the scene document (has_rot_media restored),
     Scene.update(i, yaw=...) edits it, and non-box prims reject it."""
@@ -486,10 +324,8 @@ def test_box_media_save_load_roundtrip(tmp_path):
 
 def test_cornell_smoke_scene_registered_e2e():
     """The registered cornell_smoke scene builds (room + light + two
-    medium boxes) and renders finite through the viewer's pallas path
-    with the box-media branch compiled in."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    yaw-rotated medium boxes) and renders finite through the viewer's BVH
+    path, boxes in the side pass."""
     from cudaraytracer_tpu.config import RenderConfig
     from cudaraytracer_tpu.viewer.app import Application
 
@@ -499,17 +335,15 @@ def test_cornell_smoke_scene_registered_e2e():
     sd = sc.device()
     assert sd.has_box_media and sd.has_rot_media  # the book's rotations
 
-    cfg = RenderConfig(width=128, height=16, scene="cornell_smoke",
-                       accel="pallas", progressive=True, max_depth=4)
+    cfg = RenderConfig(width=32, height=16, scene="cornell_smoke",
+                       accel="auto", progressive=True, max_depth=4)
     app = Application(cfg)
-    with pltpu.force_tpu_interpret_mode():
-        rl = app.setup_default_layers()
-        assert rl._pallas is not None and rl._pallas.has_media
-        assert rl._pallas.has_rotm
-        app.run(max_frames=2)
-        img = rl.framebuffer_rgba8()
+    rl = app.setup_default_layers()
+    assert rl.cfg.accel == "bvh" and rl._sd.has_rot_media
+    app.run(max_frames=2)
+    img = rl.framebuffer_rgba8()
     app.close()
-    assert np.isfinite(img[..., :3]).all()
+    assert np.isfinite(img[..., :3]).all() and img[..., :3].sum() > 0
 
 
 def test_cornell_smoke_matches_oracle_statistically():

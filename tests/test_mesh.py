@@ -380,124 +380,6 @@ def test_mesh_scene_renders_brute_and_bvh():
     assert img_b.std() > 0.01
 
 
-def test_packers_bit_identical_with_triangles():
-    """Native C++ packer == NumPy packer on a triangle-bearing scene
-    (table layout ABI v2: 4 segments, 3-bit ptype in PACKC, tri rows)."""
-    from cudaraytracer_tpu.native import pack_native
-    from cudaraytracer_tpu.ops.pallas.render_kernel import pack_scene_tables
-
-    if not pack_native.available():
-        pytest.skip("native packer not built")
-    sc = random_tri_scene(40)
-    for with_uv in (False, True):
-        a = pack_scene_tables(sc, with_uv=with_uv, force_numpy=True)
-        b = pack_scene_tables(sc, with_uv=with_uv, force_numpy=False)
-        np.testing.assert_array_equal(a.S, b.S)
-        np.testing.assert_array_equal(a.P, b.P)
-        np.testing.assert_array_equal(a.clusters, b.clusters)
-        np.testing.assert_array_equal(a.supers, b.supers)
-        np.testing.assert_array_equal(a.prim_map, b.prim_map)
-        assert a.n_super == b.n_super
-
-
-def test_cluster_kinds_with_triangles():
-    """Triangles are segregated into kind-3 clusters; sphere/rect clusters
-    keep their kinds (homogeneous-cluster invariant of the megakernel)."""
-    from cudaraytracer_tpu.ops.pallas.render_kernel import pack_scene_tables
-
-    sc = Scene(capacity=256)
-    for i in range(20):
-        sc.add_sphere((i * 0.1, 0, 0), 0.05, albedo=(1, 1, 1))
-    for i in range(20):
-        sc.add_xy_rect((i * 0.1, 1, 0), 0.1, 0.1, albedo=(1, 1, 1))
-    v, f = mesh.icosphere(1)
-    sc.add_mesh(mesh.transformed(v, scale=0.2, translate=(0, 2, 0)), f,
-                albedo=(1, 1, 1))
-    t = pack_scene_tables(sc)
-    kinds = set(int(k) for k in t.clusters[6])
-    assert 3 in kinds  # triangle clusters present
-    # every real triangle column landed in a kind-3 or mixed cluster
-    tri_cols = np.nonzero(
-        (t.prim_map >= 0) & (sc.prim_type[np.maximum(t.prim_map, 0)] == 4))[0]
-    for j in tri_cols:
-        k = int(t.clusters[6, j // t.cluster])
-        assert k in (2, 3), (j, k)
-    # triangle columns carry the Havel-Herout planes and poisoned
-    # sphere/rect rows
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        S_D1, S_D2, S_DN, S_HA, S_M2X, S_M2Y, S_M2Z, S_N1X, S_N1Y, S_N1Z,
-        S_NX, S_NY, S_NZ, S_R2)
-
-    j = tri_cols[0]
-    slot = t.prim_map[j]
-    assert t.S[S_R2, j] == -1.0 and t.S[S_HA, j] == -1.0
-    e1, e2 = sc.edge1[slot], sc.edge2[slot]
-    v0 = sc.center[slot]
-    n = np.cross(e1, e2)
-    np.testing.assert_allclose(t.S[S_NX, j], n[0], rtol=1e-6)
-    np.testing.assert_allclose(t.S[S_DN, j], np.dot(n, v0), rtol=1e-5)
-    # barycentric planes: u(v0)=0, u(v0+e1)=1, u(v0+e2)=0 (and v likewise)
-    n1 = np.array([t.S[S_N1X, j], t.S[S_N1Y, j], t.S[S_N1Z, j]])
-    m2 = np.array([t.S[S_M2X, j], t.S[S_M2Y, j], t.S[S_M2Z, j]])
-    d1, d2 = t.S[S_D1, j], t.S[S_D2, j]
-    np.testing.assert_allclose(np.dot(v0, n1) + d1, 0.0, atol=1e-5)
-    np.testing.assert_allclose(np.dot(v0 + e1, n1) + d1, 1.0, atol=1e-4)
-    np.testing.assert_allclose(np.dot(v0 + e2, n1) + d1, 0.0, atol=1e-5)
-    np.testing.assert_allclose(np.dot(v0 + e1, m2) + d2, 0.0, atol=1e-5)
-    np.testing.assert_allclose(np.dot(v0 + e2, m2) + d2, 1.0, atol=1e-4)
-
-
-@pytest.mark.slow
-def test_pallas_triangles_match_xla():
-    """Megakernel triangle path (kind-3 clusters + triple-product
-    Moller-Trumbore) vs the XLA renderer on a mesh scene.  Interpret-mode
-    PRNG is effectively 1-spp, so tolerances are MC-noise loose; framing
-    or intersection errors blow past them immediately."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.models.camera import make_camera_params
-    from cudaraytracer_tpu.models.renderer import render_radiance
-    from cudaraytracer_tpu.models.scene import METAL
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera, pack_scene_tables, pallas_render_sample)
-    from cudaraytracer_tpu.utils import rng as rngu
-
-    sc = Scene(capacity=128)
-    sc.add_sphere((0, -100.5, -1), 100.0, albedo=(0.5, 0.5, 0.5))
-    v, f = mesh.box((0.9, 0.9, 0.9))
-    sc.add_mesh(mesh.transformed(v, rotate_y=0.5, translate=(-0.7, 0.0, -1.6)),
-                f, albedo=(0.8, 0.25, 0.2))
-    sc.add_triangle((0.3, -0.45, -1.2), (1.3, -0.45, -1.4), (0.8, 0.6, -1.3),
-                    mat_type=METAL, albedo=(0.8, 0.8, 0.9), fuzz=0.05)
-    sd = sc.device()
-    cam = make_camera_params(origin=(0, 0.3, 1.2), forward=(0, -0.1, -1))
-    W, H, SPP, DEPTH = 96, 32, 8, 4
-
-    t = pack_scene_tables(sc)
-    assert 3 in set(int(k) for k in t.clusters[6])
-    tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-    cam_vec = pack_camera(cam, sd, W, H, 1e-3)
-    acc = 0.0
-    with pltpu.force_tpu_interpret_mode():
-        for s in range(SPP):
-            img = pallas_render_sample(
-                *tabs, t.n_super, cam_vec, 7 + s, DEPTH,
-                width=W, height=H, camera_model="look_at",
-                tile_h=16, tile_w=128, has_rects=False, has_tris=True,
-            )
-            acc = acc + img[:H, :W]
-    pal = np.asarray(acc) / SPP
-    xla = np.asarray(
-        render_radiance(sd, cam, rngu.base_key(), SPP, DEPTH,
-                        width=W, height=H, camera_model="look_at")
-    ) / SPP
-    pb = pal.reshape(4, 8, 12, 8, 3).mean((1, 3))
-    xb = xla.reshape(4, 8, 12, 8, 3).mean((1, 3))
-    assert np.abs(pb - xb).max() < 0.3
-    assert abs(pal.mean() - xla.mean()) < 0.02
-
-
 def test_bulk_add_mesh_matches_per_face_add_triangle():
     """add_mesh's vectorized bulk insert must be bit-identical to F
     sequential add_triangle calls (same slot order, same defaults, same
@@ -545,79 +427,47 @@ def test_bulk_add_mesh_grows_and_validates():
         sc.add_mesh(v, f, uvs=bad_uv)
 
 
-def test_oversized_scene_streams_on_megakernel():
-    """A scene past the megakernel's resident SMEM ceiling must STAY on
-    accel=pallas and engage the HBM-streamed table layout (stream_b > 0) —
-    the shipped routing since the streamed megakernel landed
-    (viewer/app.py::_sync_scene).  Round 2 rerouted such scenes to the
-    XLA BVH path, which on TPU is correctness-class only."""
+def test_large_mesh_scene_routes_to_bvh():
+    """A terrain_big-style mesh (5,000 triangles) opens on the BVH path
+    under accel=auto — the tree, not a brute scan, carries large scenes —
+    and renders a finite, lit frame."""
     from cudaraytracer_tpu.config import RenderConfig
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        SMEM_PRIM_CEILING, fits_megakernel)
-    from cudaraytracer_tpu.viewer.app import Application
-
-    assert fits_megakernel(1000, False) and fits_megakernel(1000, True)
-    assert not fits_megakernel(SMEM_PRIM_CEILING["plain"] + 1, False)
-    assert not fits_megakernel(SMEM_PRIM_CEILING["vattr"] + 1, True)
-    # past the vattr ceiling: terrain_big-style mesh + filler spheres
     from cudaraytracer_tpu.models import scenes as scn
+    from cudaraytracer_tpu.viewer.app import Application, RenderLayer
 
-    sc = scn.terrain_big_scene(capacity=32768, n=51)  # 5000 tris (fits)
-    need = int(SMEM_PRIM_CEILING["vattr"] * 0.96) + 10 - sc.num_active
-    for i in range(max(need, 0)):
-        sc.add_sphere((i * 0.1, -50.0, 0.0), 0.01)
-    assert not fits_megakernel(sc.num_active, sc.has_vertex_attrs)
-
-    cfg = RenderConfig(width=32, height=16, max_depth=2,
-                       scene="terrain_big", accel="pallas",
-                       camera_model="look_at")
+    sc = scn.terrain_big_scene(capacity=8192, n=51)
+    assert sc.num_active == 5002
+    cfg = RenderConfig(width=16, height=8, max_depth=2, scene="terrain_big",
+                       accel="auto", camera_model="look_at")
     app = Application(cfg)
-    from cudaraytracer_tpu.viewer.app import RenderLayer
-
     rl = RenderLayer(cfg, scene=sc)
+    rl._pose_fly_at(scn.terrain_camera())
     app.push_layer(rl)
-    assert rl.cfg.accel == "pallas"   # did NOT fall back to bvh
-    assert rl._pallas is not None and rl._bvh is None
-    assert rl._pallas.stream_b > 0    # streamed layout engaged
+    app.run(max_frames=1)
+    assert rl.cfg.accel == "bvh" and rl._bvh is not None
+    assert int(rl._bvh.n_nodes) == 2 * sc.num_active - 1
+    img = rl.radiance_mean()
+    assert np.isfinite(img).all() and img.mean() > 0.01
     app.close()
-    # (frame execution through the streamed layout is covered by
-    # test_stream.py::test_renderlayer_streams_beyond_ceiling — running
-    # a 5.8k-prim streamed kernel in interpret mode here would cost
-    # minutes for no extra coverage)
 
 
-def test_fits_megakernel_is_byte_accurate_with_tables():
-    """The resident/streamed routing must be BYTE-accurate when the packed
-    tables are available: feature flags add P rows (images +2, motion +3)
-    and kind-segregated Morton clusters pad columns well past num_active,
-    so a prim-count rule under-estimates SMEM.  The measured round-5
-    failure: book2_final (5,809 prims, all flags) packs to a 951,600 B
-    table that Mosaic REJECTS on v5e while the prim-count rule said
-    'resident' — it must route streamed."""
+@pytest.mark.parametrize("name", ["mesh_demo", "mesh_smooth", "terrain"])
+def test_mesh_scene_bvh_kernel_matches_brute_render(name):
+    """Same RNG stream through the BVH path with the closest-hit kernel
+    (interpreted) and through the brute reference: identical hits, so the
+    frames agree to float noise."""
     from cudaraytracer_tpu.models import scenes as scn
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        SMEM_PRIM_CEILING, SMEM_TABLE_BUDGET, fits_megakernel,
-        pack_scene_tables, table_smem_bytes)
+    from cudaraytracer_tpu.models.renderer import render_radiance
+    from cudaraytracer_tpu.utils import rng as rngu
 
-    sc = scn.book2_final_scene()
-    t = pack_scene_tables(sc, with_uv=True)
-    # the measured hardware-failure shape: 28 rows x 8,400 cols = 951.6 KB
-    assert t.S.shape[1] > sc.num_active  # cluster padding is real
-    assert table_smem_bytes(t) > SMEM_TABLE_BUDGET
-    assert fits_megakernel(sc.num_active, t.vattrs)  # the old rule lied
-    assert not fits_megakernel(sc.num_active, t.vattrs, tables=t)
-
-    # a small all-flags scene still fits resident
-    sm = scn.book2_final_scene(boxes_per_side=3, cluster_spheres=8,
-                               capacity=256)
-    ts = pack_scene_tables(sm, with_uv=True)
-    assert fits_megakernel(sm.num_active, ts.vattrs, tables=ts)
-
-    # the plain probe layout (P_ROWS, no vattrs) keeps its measured
-    # 10,144-prim ceiling rather than the conservative byte budget
-    sp = scn.rtow_final_scene()
-    tp = pack_scene_tables(sp, with_uv=False)
-    assert tp.P.shape[0] == 7
-    assert fits_megakernel(sp.num_active, tp.vattrs, tables=tp)
-    assert not fits_megakernel(SMEM_PRIM_CEILING["plain"] + 1, False,
-                               tables=tp)
+    make_scene, make_cam = scn.SCENES[name]
+    sc = make_scene()
+    sd = sc.device()
+    kw = dict(width=8, height=8, camera_model="look_at")
+    key = rngu.base_key(4)
+    ref = np.asarray(render_radiance(sd, make_cam(), key, 1, 3, **kw))
+    got = np.asarray(render_radiance(
+        sd, make_cam(), key, 1, 3, **kw,
+        hit_fn=bvhm.make_bvh_hit_fn(bvhm.build_bvh(sc), sd,
+                                    traversal="interpret")))
+    np.testing.assert_allclose(got, ref, atol=2e-3)

@@ -5,18 +5,11 @@ the CUDA reference's world is static).
 Semantics: ``Scene.add_moving_sphere(c0, c1, r)`` stores velocity =
 c1 - c0; every PATH samples one shutter time t ~ U[0,1) and sees the
 whole world frozen at center(t) = c0 + t*v for all of its bounces.
-Wired through every path: the XLA brute scan (time-dependent quadratic,
-still MXU matmuls), the BVH accel (moving prims live OUTSIDE the tree
-with swept AABBs, brute side pass), the megakernel in BOTH layouts
-(velocity in the spare S_CK/S_CA/S_CB sphere rows + payload velocity
-rows for the winner's normal; per-path time carried across waves), and
-the oracle.  G-buffers show moving spheres at shutter-open (time 0) so
+Wired through every path: the XLA brute scan (time-dependent quadratic),
+the BVH accel (moving prims live OUTSIDE the tree with swept AABBs, brute
+side pass, with either traversal), and the oracle.  G-buffers show moving spheres at shutter-open (time 0) so
 features stay deterministic.
 
-Interpret-mode note: the interpret PRNG is wave-insensitive, so per-lane
-shutter times degenerate to near-constant — the blur footprint only
-spreads on real hardware (banked v5e run: kernel == XLA at 64 spp with
-block err max 0.0086, BASELINE.md).  Interpret tests check identities.
 """
 
 import numpy as np
@@ -113,40 +106,6 @@ def test_motion_bvh_matches_brute():
     blk_b = brute.reshape(4, 4, 6, 4, 3).mean((1, 3))
     blk_a = accel.reshape(4, 4, 6, 4, 3).mean((1, 3))
     assert np.abs(blk_b - blk_a).mean() < 0.05
-
-
-@pytest.mark.slow
-def test_pallas_motion_stream_identity_and_finite():
-    """Megakernel motion (interpret): finite output, and the streamed
-    layout reproduces the resident one bit-for-bit (velocity rides the
-    tables; the per-path time is PRNG state, identical in both)."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera_np, pack_scene_tables, pack_stream_tiles,
-        pallas_render_sample)
-
-    sc, cam = _motion_scene()
-    W, H, D = 128, 32, 5
-    t = pack_scene_tables(sc)
-    assert t.motion and t.P.shape[0] == 10  # +3 velocity payload rows
-    cam_vec = jnp.asarray(pack_camera_np(
-        cam, sc.background_start, sc.background_end, W, H, 1e-3))
-    kw = dict(width=W, height=H, camera_model="look_at", tile_h=16,
-              tile_w=128, has_rects=True, cluster=t.cluster,
-              super_=t.super_, has_motion=True)
-    tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-    st = pack_stream_tiles(t)
-    stabs = tuple(jnp.asarray(x) for x in
-                  (st.tiles, st.block_boxes, st.clusters, st.supers))
-    with pltpu.force_tpu_interpret_mode():
-        a = np.asarray(pallas_render_sample(
-            *tabs, t.n_super, cam_vec, 3, D, **kw))
-        b = np.asarray(pallas_render_sample(
-            *stabs, st.n_blocks, cam_vec, 3, D, stream_b=st.block_b, **kw))
-    assert np.isfinite(a).all()
-    assert np.abs(a - b).max() == 0.0
 
 
 def test_motion_save_load_and_gbuffer_shutter_open():

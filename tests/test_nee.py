@@ -128,11 +128,9 @@ def test_degenerate_triangle_light_excluded():
     sc.add_triangle((0, 2, 0), (1, 2, 0), (2, 2, 0),  # collinear
                     mat_type=DIFFUSE_LIGHT, light=5.0)
     assert float(sampling.collect_lights(sc.device())[-1]) == 0.0
-    assert float(sampling.pack_lights_np(sc)[0]) == 0.0
     sc.add_triangle((0, 2, 0), (1, 2, 0), (0, 2, 1),
                     mat_type=DIFFUSE_LIGHT, light=5.0)
     assert float(sampling.collect_lights(sc.device())[-1]) == 1.0
-    assert float(sampling.pack_lights_np(sc)[0]) == 1.0
 
 
 def test_light_table_overflow_contract():
@@ -154,9 +152,6 @@ def test_light_table_overflow_contract():
     assert float(lights[-1]) == 8.0
     np.testing.assert_allclose(np.asarray(lights[1]),
                                np.asarray(centers[:8], np.float32))
-    v = sampling.pack_lights_np(sc)
-    assert float(v[0]) == 8.0  # host packer truncates identically
-    np.testing.assert_allclose(v[2 + 1:2 + 4], centers[0])
     cam = scenes.cornell_like_camera()
     nee = _render(sc.device(), cam, 192, 0.5, seed=3)
     cos = _render(sc.device(), cam, 192, 0.0, seed=4)

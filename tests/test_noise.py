@@ -3,17 +3,15 @@
 The reference's texture set stops at Constant/Checker/Image
 (Texture.cuh:7-109); this framework adds the RTOW "The Next Week"
 value-noise marble as a fourth type, wired through every path: the XLA
-sampler (ops/textures.py), the NumPy oracle, the radiance megakernel and
-the G-buffer kernel (static has_noise gate — noise-free scenes trace
-identical graphs).  tex_id is REPURPOSED as the integer marble scale.
+sampler (ops/textures.py) and the NumPy oracle.  tex_id is REPURPOSED as
+the integer marble scale.
 
 Cross-backend agreement is ~5e-3, not bit-exact (the 43758 hash amplifies
 the sin backend's ulp error — noise.py "Numerical note"); the mod-61
-lattice wrap (ADVICE r3) makes that bound hold at ANY scene coordinate.
+lattice wrap makes that bound hold at ANY scene coordinate.
 """
 
 import numpy as np
-import pytest
 
 from cudaraytracer_tpu.ops import noise
 
@@ -22,7 +20,7 @@ from cudaraytracer_tpu.ops import noise
 def test_noise_cross_backend_tolerance_any_coordinate():
     """numpy vs jax.numpy agree STATISTICALLY to the documented ~5e-3 —
     including at coordinates ~1e3 from the origin and after 6 octave
-    doublings, where the unwrapped hash lost all agreement (ADVICE r3).
+    doublings, where the unwrapped hash lost all agreement.
 
     The bound is a quantile, not a sup: fract is discontinuous, so a
     1-ulp sin difference can flip a lattice corner's hash by ~1 when
@@ -145,106 +143,3 @@ def test_marble_scene_matches_oracle():
     err = np.abs(blk_g - blk_o)
     assert err.mean() < 0.05, f"mean block error {err.mean()}"
 
-
-@pytest.mark.slow
-def test_pallas_marble_matches_xla():
-    """The megakernel's in-kernel marble branch vs the XLA path: marble
-    albedo is DETERMINISTIC in the hit point, so with the same camera the
-    two renders agree in block means at low spp, and the marble banding
-    must actually vary across the hero sphere (a broken scale would give
-    a flat color)."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.models import scenes
-    from cudaraytracer_tpu.models.renderer import render_radiance
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera, pack_scene_tables, pallas_render_sample)
-    from cudaraytracer_tpu.utils import rng as rngu
-
-    sc = scenes.marble_scene()
-    sd = sc.device()
-    cam = scenes.marble_camera()
-    W, H, SPP, D = 128, 32, 6, 4
-    t = pack_scene_tables(sc)
-    tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-    cam_vec = pack_camera(cam, sd, W, H, 1e-3)
-    acc = 0.0
-    with pltpu.force_tpu_interpret_mode():
-        for s in range(SPP):
-            img = pallas_render_sample(
-                *tabs, t.n_super, cam_vec, 7 + s, D,
-                width=W, height=H, camera_model="look_at",
-                tile_h=16, tile_w=128, has_rects=False,
-                cluster=t.cluster, super_=t.super_, has_noise=True,
-            )
-            acc = acc + img[:H, :W]
-    pal = np.asarray(acc) / SPP
-    xla = np.asarray(
-        render_radiance(sd, cam, rngu.base_key(), SPP * 2, D,
-                        width=W, height=H, camera_model="look_at")
-    ) / (SPP * 2)
-    assert np.isfinite(pal).all()
-    pb = pal.reshape(H // 8, 8, W // 8, 8, 3).mean((1, 3))
-    xb = xla.reshape(H // 8, 8, W // 8, 8, 3).mean((1, 3))
-    assert np.abs(pb - xb).max() < 0.2
-    assert abs(pal.mean() - xla.mean()) < 0.03
-    # the hero sphere really shows marble banding (not one flat color)
-    hero = pal[10:28, 48:80].reshape(-1, 3)
-    assert hero.max(0).max() - hero.min(0).min() > 0.3
-
-
-@pytest.mark.slow
-def test_gbuffer_kernel_marble_matches_xla():
-    """The G-buffer albedo plane through the megakernel pass on a noise
-    scene vs the XLA primary pass.  Center rays are deterministic, but the
-    two paths reconstruct the hit point with different f32 op orders and
-    marble amplifies that drift (sin-band slope x 10*turbulence slope), so
-    the albedo contract is quantile-based like every noise comparison;
-    geometry (mask/depth/normal) must still agree everywhere."""
-    from cudaraytracer_tpu.models import scenes
-    from cudaraytracer_tpu.ops.gbuffer import primary_features
-    from test_gbuffer_kernel import _pallas_gb
-
-    sc, cam = scenes.marble_scene(), scenes.marble_camera()
-    W, H = 128, 32
-    gb = primary_features(sc.device(), cam, width=W, height=H,
-                          camera_model="look_at")
-    n_x, a_x, d_x = (np.asarray(v) for v in gb)
-    n_p, a_p, d_p = _pallas_gb(sc, cam, "look_at", W, H)
-    hit_x, hit_p = d_x > 0, d_p > 0
-    assert (hit_x != hit_p).mean() == 0.0
-    both = hit_x & hit_p
-    assert both.mean() > 0.5
-    np.testing.assert_allclose(d_p[both], d_x[both], rtol=5e-4, atol=1e-4)
-    assert np.abs(n_p[both] - n_x[both]).max() < 2e-2
-    d = np.abs(a_p[both] - a_x[both]).max(-1)
-    assert np.median(d) < 5e-3, np.median(d)
-    assert (d > 0.1).mean() < 0.01, (d > 0.1).mean()
-    # miss pixels: sky albedo agrees tightly (no noise influence)
-    miss = ~hit_x
-    np.testing.assert_allclose(a_p[miss], a_x[miss], atol=1e-5)
-
-
-@pytest.mark.slow
-def test_viewer_marble_scene_e2e():
-    """The viewer renders the registered marble scene on the pallas path
-    (has_noise compiled in) and the scene panel round-trips the noise
-    texture name + scale field."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.config import RenderConfig
-    from cudaraytracer_tpu.viewer.app import Application
-
-    cfg = RenderConfig(width=128, height=16, scene="marble", accel="pallas",
-                       progressive=True, max_depth=3,
-                       camera_model="look_at")
-    app = Application(cfg)
-    with pltpu.force_tpu_interpret_mode():
-        rl = app.setup_default_layers()
-        assert rl._pallas is not None and rl._pallas.has_noise
-        app.run(max_frames=2)
-        img = rl.framebuffer_rgba8()
-    app.close()
-    assert img[..., :3].sum() > 0
-    assert np.isfinite(img[..., :3]).all()

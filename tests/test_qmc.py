@@ -2,17 +2,13 @@
 
 The reference draws independent curand pixel jitter per sample
 (Kernel.cu:130-148); ``--qmc`` replaces it with the R2 additive
-recurrence shifted per pixel by a deterministic rotation field.  BOTH
-render paths share the exact formulas, so with QMC enabled the XLA
-raygen and the megakernel trace IDENTICAL primary rays for identical
-global sample indices — which these tests pin directly (a cross-path
-identity unavailable under PRNG jitter).  The convergence-rate payoff
-is measured on the CPU XLA path here (pixel jitter is deterministic,
-so interpret-PRNG wave-insensitivity is irrelevant for it) and on
-hardware by tools/qmc_probe.py.
+recurrence shifted per pixel by a deterministic rotation field.  The
+jitter is a pure function of (pixel, global sample index), so with QMC a
+background-only scene renders IDENTICALLY through every closest-hit path
+(brute, BVH with the XLA traversal, BVH with the kernel) — which these
+tests pin directly (a cross-path identity unavailable under PRNG jitter).
+The convergence-rate payoff is measured on the CPU XLA path here.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -144,7 +140,7 @@ def test_xla_progressive_offsets_extend_sequence():
     assert np.allclose(np.asarray(acc), one, atol=1e-5)
 
 
-# ----------------------------------------------------- megakernel parity
+# ------------------------------------------------------ path parity
 
 def _sky_scene():
     """No primary ray hits anything: radiance is a pure function of the
@@ -156,122 +152,56 @@ def _sky_scene():
     return sc
 
 
-def _kernel_render(sc, cam, W, H, spp, sample_base=0, has_qmc=True,
-                   streamed=False, depth=2, seed=7):
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera_np, pack_scene_tables, pack_stream_tiles,
-        pallas_render_sample)
-
-    t = pack_scene_tables(sc)
-    cam_vec = jnp.asarray(pack_camera_np(
-        cam, sc.background_start, sc.background_end, W, H, 1e-3))
-    kw = dict(width=W, height=H, camera_model="two_plane", tile_h=16,
-              tile_w=128, has_rects=True, cluster=t.cluster,
-              super_=t.super_, spp=spp, has_qmc=has_qmc,
-              sample_base=sample_base)
-    with pltpu.force_tpu_interpret_mode():
-        if streamed:
-            st = pack_stream_tiles(t)
-            stabs = tuple(jnp.asarray(x) for x in
-                          (st.tiles, st.block_boxes, st.clusters, st.supers))
-            return np.asarray(pallas_render_sample(
-                *stabs, st.n_blocks, cam_vec, seed, depth,
-                stream_b=st.block_b, **kw))[:H, :W]
-        tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-        return np.asarray(pallas_render_sample(
-            *tabs, t.n_super, cam_vec, seed, depth, **kw))[:H, :W]
+def _bvh_renderer(W, H, traversal):
+    return Renderer(W, H, qmc=True, traversal=traversal)
 
 
-def test_kernel_xla_qmc_primary_identity():
-    """With QMC, kernel and XLA trace the SAME primary rays: on a
-    background-only scene the radiance matches to f32 rounding — the
-    cross-path test PRNG jitter can never provide."""
+@pytest.mark.parametrize("traversal", ["xla", "interpret"])
+def test_bvh_qmc_primary_identity(traversal):
+    """With QMC, the BVH path (either traversal) and the brute reference
+    trace the SAME primary rays: on a background-only scene the radiance
+    matches to f32 rounding."""
+    from cudaraytracer_tpu.models.bvh import build_bvh
+
     sc = _sky_scene()
     cam = make_camera_params()
-    W, H, SPP = 64, 48, 3
-    xla = np.asarray(Renderer(W, H, qmc=True).render(
+    W, H, SPP = 16, 8, 3
+    brute = np.asarray(Renderer(W, H, qmc=True).render(
         sc.device(), cam, rngu.base_key(), spp=SPP, max_depth=2))
-    ker = _kernel_render(sc, cam, W, H, SPP)
-    assert np.abs(ker - xla).max() < 1e-4
+    bvh = np.asarray(_bvh_renderer(W, H, traversal).render(
+        sc.device(), cam, rngu.base_key(), spp=SPP, max_depth=2,
+        bvh=build_bvh(sc)))
+    assert np.abs(bvh - brute).max() < 1e-4
 
 
-def test_kernel_qmc_off_ignores_sample_base():
-    """has_qmc=False compiles the historical PRNG-jitter graph: the
-    sample_base scalar must be inert (bit-identical output)."""
+def test_bvh_qmc_progressive_extends_sequence():
+    """Two progressive 1-spp frames at sample offsets 0 and 1 sum exactly
+    to one 2-spp render (global index = offset + sample), and the offset
+    advance changes the jitter — on the BVH path with the kernel."""
+    from cudaraytracer_tpu.models.bvh import build_bvh
+
     sc = _sky_scene()
+    sd, bvh = sc.device(), build_bvh(sc)
     cam = make_camera_params()
-    a = _kernel_render(sc, cam, 64, 32, 2, sample_base=0, has_qmc=False)
-    b = _kernel_render(sc, cam, 64, 32, 2, sample_base=999, has_qmc=False)
-    assert np.array_equal(a, b)
-
-
-def test_kernel_qmc_progressive_extends_sequence():
-    """Two 1-spp launches at bases 0 and 1 sum exactly to one 2-spp launch
-    (per-lane index = base + done), and base advances change the jitter."""
-    sc = _sky_scene()
-    cam = make_camera_params()
-    W, H = 64, 32
-    two = _kernel_render(sc, cam, W, H, 2, sample_base=0)
-    a = _kernel_render(sc, cam, W, H, 1, sample_base=0)
-    b = _kernel_render(sc, cam, W, H, 1, sample_base=1)
+    r = _bvh_renderer(16, 8, "interpret")
+    key = rngu.base_key()
+    two = np.asarray(r.render(sd, cam, key, spp=2, max_depth=2, bvh=bvh))
+    zero = r.zeros_accum()
+    a = np.asarray(r.accumulate(sd, cam, key, 2, zero, bvh=bvh,
+                                sample_offset=0))
+    b = np.asarray(r.accumulate(sd, cam, key, 2, zero, bvh=bvh,
+                                sample_offset=1))
     assert not np.array_equal(a, b)
     assert np.abs((a + b) - two).max() < 1e-5
 
 
-def test_kernel_qmc_streamed_matches_resident():
-    """The streamed layout reproduces the resident one under has_qmc
-    (jitter depends only on pixel + index, never on table layout)."""
-    sc = _sky_scene()
-    cam = make_camera_params()
-    res = _kernel_render(sc, cam, 64, 32, 2, sample_base=3)
-    stm = _kernel_render(sc, cam, 64, 32, 2, sample_base=3, streamed=True)
-    assert np.array_equal(res, stm)
-
-
-@pytest.mark.slow
-def test_kernel_qmc_sharded_disjoint_slices():
-    """Multi-chip QMC: sample-parallel chips draw DISJOINT R2 slices
-    (sample_base + si*spp in parallel/tiling.py), so a rows=2 x samples=4
-    mesh at 2 spp per chip psums to EXACTLY the single-chip 8-spp launch
-    on the sky scene (radiance there is a pure function of the jitter)."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera_np, pack_scene_tables)
-    from cudaraytracer_tpu.parallel import make_mesh, render_sharded_pallas
-
-    sc = _sky_scene()
-    cam = make_camera_params()
-    W, H = 128, 32
-    t = pack_scene_tables(sc)
-    mesh = make_mesh(n_rows=2, n_samples=4)
-    cam_np = pack_camera_np(
-        cam, sc.background_start, sc.background_end, W, H, 1e-3)
-    tables = tuple(map(jnp.asarray, (t.S, t.P, t.clusters, t.supers)))
-    with pltpu.force_tpu_interpret_mode():
-        out = render_sharded_pallas(
-            tables, t.n_super, jnp.asarray(cam_np), 7, 2,
-            width=W, height=H, mesh=mesh, camera_model="two_plane",
-            tile_h=16, tile_w=128, cluster=t.cluster, super_=t.super_,
-            spp=2, has_qmc=True)
-        out.block_until_ready()
-    one = _kernel_render(sc, cam, W, H, 8)
-    assert np.abs(np.asarray(out) - one).max() < 1e-5
-
-
 def test_viewer_qmc_toggle_e2e():
     """HTTP surface: the QMC checkbox posts {"qmc": true}; the server
-    rebuilds the pipeline with the R2 sampler compiled in (has_qmc),
-    /state reports it, and it toggles cleanly back off — same
-    static-rebuild lever as the NEE toggle (test_nee_kernel.py)."""
+    rebuilds the renderer with the R2 sampler, /state reports it, and it
+    toggles cleanly back off — same static-rebuild lever as the NEE
+    toggle (test_nee_viewer.py)."""
     import json
     import urllib.request
-
-    from jax.experimental.pallas import tpu as pltpu
 
     from cudaraytracer_tpu.config import RenderConfig
     from cudaraytracer_tpu.viewer.app import Application
@@ -288,104 +218,27 @@ def test_viewer_qmc_toggle_e2e():
         with urllib.request.urlopen(req) as r:
             return r.read()
 
-    # the DEFAULT scene: its sky background guarantees lit frames even
-    # under interpret-mode PRNG degeneracy (cornell needs real-chip
-    # scatter draws to find its overhead light at low depth)
-    cfg = RenderConfig(width=128, height=16, spp=1, max_depth=3,
-                       scene="default", accel="pallas", progressive=True)
+    cfg = RenderConfig(width=32, height=16, spp=1, max_depth=3,
+                       scene="default", accel="bvh", progressive=True)
     app = Application(cfg)
-    with pltpu.force_tpu_interpret_mode():
-        rl = app.setup_default_layers()
+    rl = app.setup_default_layers()
+    app.run(max_frames=1)
+    assert not rl.renderer.qmc
+    server = ViewerServer(app, port=0)
+    server.start()
+    port = server.port
+    try:
+        assert json.loads(get(port, "/state"))["options"]["qmc"] is False
+        post(port, "/options", {"qmc": True})
+        app.run(max_frames=2)
+        assert json.loads(get(port, "/state"))["options"]["qmc"] is True
+        assert rl.renderer.qmc
+        img = rl.framebuffer_rgba8()
+        assert np.isfinite(img[..., :3]).all() and img[..., :3].sum() > 0
+        post(port, "/options", {"qmc": False})
         app.run(max_frames=1)
-        assert rl._pallas is not None and not rl._pallas.has_qmc
-        server = ViewerServer(app, port=0)
-        httpd = server.start()
-        port = httpd.server_address[1]
-        try:
-            s = json.loads(get(port, "/state"))
-            assert s["options"]["qmc"] is False
-            post(port, "/options", {"qmc": True})
-            app.run(max_frames=2)  # resync rebuilds the pipeline
-            s = json.loads(get(port, "/state"))
-            assert s["options"]["qmc"] is True
-            assert rl._pallas.has_qmc
-            img = rl.framebuffer_rgba8()
-            assert np.isfinite(img[..., :3]).all()
-            assert img[..., :3].sum() > 0
-            post(port, "/options", {"qmc": False})
-            app.run(max_frames=1)
-            s = json.loads(get(port, "/state"))
-            assert s["options"]["qmc"] is False
-            assert not rl._pallas.has_qmc
-        finally:
-            server.stop()
-            app.close()
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(not os.environ.get("CRT_TPU_TESTS"),
-                    reason="needs real TPU (set CRT_TPU_TESTS=1)")
-def test_kernel_qmc_matches_xla_qmc_tpu():
-    """REAL-chip contract: compiled megakernel QMC primary rays equal the
-    XLA QMC primary rays (background-only scene, exact), and a full
-    default-scene render agrees to MC block noise."""
-    import subprocess
-    import sys
-
-    code = r"""
-import numpy as np, jax.numpy as jnp
-import sys
-sys.path.insert(0, "tests")
-from cudaraytracer_tpu.models.camera import make_camera_params
-from cudaraytracer_tpu.models.renderer import Renderer
-from cudaraytracer_tpu.models import scenes
-from cudaraytracer_tpu.utils import rng as rngu
-from cudaraytracer_tpu.ops.pallas.render_kernel import (
-    pack_camera_np, pack_scene_tables, pallas_render_sample)
-import test_qmc
-
-# exact primary-ray identity on the sky scene
-sc = test_qmc._sky_scene()
-cam = make_camera_params()
-W, H, SPP = 128, 32, 4
-t = pack_scene_tables(sc)
-tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-cam_np = pack_camera_np(
-    cam, sc.background_start, sc.background_end, W, H, 1e-3)
-ker = np.asarray(pallas_render_sample(
-    *tabs, t.n_super, jnp.asarray(cam_np), 7, 2, spp=SPP, width=W,
-    height=H, camera_model="two_plane", tile_h=16, tile_w=128,
-    has_rects=True, cluster=t.cluster, super_=t.super_,
-    has_qmc=True))[:H, :W]
-xla = np.asarray(Renderer(W, H, qmc=True).render(
-    sc.device(), cam, rngu.base_key(), spp=SPP, max_depth=2))
-exact = float(np.abs(ker - xla).max())
-assert exact < 1e-4, exact
-
-# full transport agreement to MC block noise on the default scene
-sc2 = scenes.default_scene(); cam2 = scenes.default_scene_camera()
-W2, H2, SPP2, D2 = 128, 64, 64, 8
-t2 = pack_scene_tables(sc2)
-tabs2 = tuple(jnp.asarray(x) for x in (t2.S, t2.P, t2.clusters, t2.supers))
-cam2_np = pack_camera_np(
-    cam2, sc2.background_start, sc2.background_end, W2, H2, 1e-3)
-ker2 = np.asarray(pallas_render_sample(
-    *tabs2, t2.n_super, jnp.asarray(cam2_np), 11, D2, spp=SPP2, width=W2,
-    height=H2, camera_model="two_plane", tile_h=16, tile_w=128,
-    has_rects=True, cluster=t2.cluster, super_=t2.super_,
-    has_qmc=True))[:H2, :W2] / SPP2
-xla2 = np.asarray(Renderer(W2, H2, qmc=True).render(
-    sc2.device(), cam2, rngu.base_key(), spp=SPP2, max_depth=D2)) / SPP2
-blk = lambda a: a.reshape(H2 // 8, 8, W2 // 8, 8, 3).mean(axis=(1, 3))
-be = np.abs(blk(ker2) - blk(xla2))
-print("exact:", exact, "block err mean/max:", be.mean(), be.max())
-assert be.mean() < 0.02, be.mean()
-assert be.max() < 0.12, be.max()
-print("OK")
-"""
-    out = subprocess.run([sys.executable, "-c", code], cwd=".",
-                         capture_output=True, text=True, timeout=1200,
-                         env={**os.environ, "PYTHONPATH":
-                              os.environ.get("PYTHONPATH", "")})
-    assert out.returncode == 0 and "OK" in out.stdout, (
-        out.stdout[-2000:], out.stderr[-2000:])
+        assert json.loads(get(port, "/state"))["options"]["qmc"] is False
+        assert not rl.renderer.qmc
+    finally:
+        server.stop()
+        app.close()

@@ -68,15 +68,13 @@ def test_image_missing_is_cyan():
 def test_empty_atlas_slot_is_missing_data():
     """An image texture pointing at a never-loaded (or freed) atlas slot is
     MISSING DATA: the reference returns cyan for a null image
-    (Texture.cuh:88-89).  Both the XLA sampler and the kernel packers must
-    treat empty slots like tex_id=-1 rather than sampling zeroed memory."""
+    (Texture.cuh:88-89).  The sampler must treat empty slots like tex_id=-1
+    rather than sampling zeroed memory."""
     import jax.numpy as jnp
     import numpy as np
 
     from cudaraytracer_tpu.models.scene import IMAGE, LAMBERTIAN, Scene
     from cudaraytracer_tpu.ops import textures
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        P_PACKC, pack_scene_tables)
 
     scene = Scene(capacity=4)
     scene.add_sphere((0, 1, -3), 1.0, mat_type=LAMBERTIAN,
@@ -92,10 +90,3 @@ def test_empty_atlas_slot_is_missing_data():
         sd.atlas, sd.tex_hw,
     )
     np.testing.assert_allclose(np.asarray(out), [[0.0, 1.0, 1.0]] * 4)
-
-    # both packers remap the invalid slot to "no image" (tex_id+1 == 0)
-    for force in (False, True):
-        t = pack_scene_tables(scene, with_uv=True, force_numpy=force)
-        col = int(np.nonzero(t.prim_map >= 0)[0][0])
-        packc = int(t.P[P_PACKC, col])
-        assert packc // 256 == 0  # tidp1 == 0 -> in-kernel cyan path

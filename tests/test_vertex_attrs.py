@@ -13,8 +13,6 @@ persistence, and end-to-end renders on brute + BVH.
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-
 from cudaraytracer_tpu.models import bvh as bvhm
 from cudaraytracer_tpu.models.camera import make_camera_params
 from cudaraytracer_tpu.models.renderer import Renderer
@@ -339,113 +337,14 @@ def test_smooth_mesh_renders_brute_and_bvh():
     assert np.abs(img_b - img_f).max() > 0.05  # shading visibly differs
 
 
-def test_native_packer_bit_identical_with_vattrs():
-    """Native C++ packer == NumPy packer on a vertex-attr scene (quantized
-    normal rows + uv rows included), for both the plain and image
-    layouts."""
-    from cudaraytracer_tpu.native import pack_native
-    from cudaraytracer_tpu.ops.pallas.render_kernel import pack_scene_tables
-
-    if not pack_native.available():
-        import pytest
-
-        pytest.skip("native packer not built")
-
-    v, f = mesh.icosphere(1)
-    sc = Scene(capacity=256)
-    sc.add_sphere((0, -100.6, -1), 100.0, albedo=(0.5, 0.5, 0.5))
-    slot = sc.load_image_texture(_checker_image())
-    theta = np.arccos(np.clip(-v[:, 1], -1, 1))
-    phi = np.arctan2(-v[:, 2], v[:, 0]) + np.pi
-    uvs = np.stack([phi / (2 * np.pi), theta / np.pi], 1).astype(np.float32)
-    sc.add_mesh(v, f, uvs=uvs, normals=v, tex_type=2, tex_id=slot)
-    sc.add_triangle((2, 0, 0), (3, 0, 0), (2, 1, 0))  # flat, default uv
-    assert sc.has_vertex_attrs
-
-    for with_uv in (False, True):
-        tn = pack_scene_tables(sc, with_uv=with_uv)
-        tp = pack_scene_tables(sc, with_uv=with_uv, force_numpy=True)
-        assert tn.P.shape == tp.P.shape, (with_uv, tn.P.shape, tp.P.shape)
-        for a, b, name in ((tn.S, tp.S, "S"), (tn.P, tp.P, "P"),
-                           (tn.clusters, tp.clusters, "clusters"),
-                           (tn.supers, tp.supers, "supers"),
-                           (tn.prim_map, tp.prim_map, "prim_map")):
-            np.testing.assert_array_equal(a, b, err_msg=f"{name} uv={with_uv}")
-        assert tn.n_super == tp.n_super
-        assert tn.vattrs and tp.vattrs
-
-
-# ----------------------------------------------------------- megakernel
-
-
-@pytest.mark.slow
-def test_pallas_smooth_mesh_matches_xla():
-    """Megakernel smooth shading (quantized vertex normals + in-kernel
-    barycentric interpolation) vs the XLA renderer, and vs its own flat
-    variant (the feature must be active)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from cudaraytracer_tpu.models.renderer import render_radiance
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera, pack_scene_tables, pallas_render_sample)
-
-    v, f = mesh.icosphere(1)
-    cam = make_camera_params(origin=(0, 0.3, 1.9), forward=(0, -0.1, -1))
-    W, H, SPP, DEPTH = 96, 32, 8, 4
-
-    def build(smooth):
-        sc = Scene(capacity=128)
-        sc.add_sphere((0, -100.6, -1), 100.0, albedo=(0.5, 0.5, 0.5))
-        sc.add_mesh(mesh.transformed(v, scale=0.7, translate=(0, 0.05, -0.9)),
-                    f, normals=v if smooth else None,
-                    mat_type=1, albedo=(0.85, 0.7, 0.3), fuzz=0.0)
-        return sc
-
-    def render_pallas(sc):
-        sd = sc.device()
-        t = pack_scene_tables(sc)
-        assert t.vattrs == sc.has_vertex_attrs
-        tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-        cam_vec = pack_camera(cam, sd, W, H, 1e-3)
-        acc = 0.0
-        with pltpu.force_tpu_interpret_mode():
-            for s in range(SPP):
-                img = pallas_render_sample(
-                    *tabs, t.n_super, cam_vec, 11 + s, DEPTH,
-                    width=W, height=H, camera_model="look_at",
-                    tile_h=16, tile_w=128, has_rects=False, has_tris=True,
-                    has_vattrs=t.vattrs,
-                )
-                acc = acc + img[:H, :W]
-        return np.asarray(acc) / SPP
-
-    sc_smooth = build(True)
-    pal = render_pallas(sc_smooth)
-    xla = np.asarray(
-        render_radiance(sc_smooth.device(), cam, rngu.base_key(), SPP, DEPTH,
-                        width=W, height=H, camera_model="look_at")
-    ) / SPP
-    pb = pal.reshape(4, 8, 12, 8, 3).mean((1, 3))
-    xb = xla.reshape(4, 8, 12, 8, 3).mean((1, 3))
-    assert np.abs(pb - xb).max() < 0.3
-    assert abs(pal.mean() - xla.mean()) < 0.02
-
-    # flat variant differs visibly on the mirror mesh (feature is live)
-    pal_flat = render_pallas(build(False))
-    assert np.abs(pal - pal_flat).max() > 0.05
-
-
-@pytest.mark.slow
-def test_pallas_textured_mesh_exact_interior():
-    """Image texture on a UV-mapped mesh through the megakernel deferral:
-    pixels strictly inside a constant-color image region must match the
-    XLA path EXACTLY (same texel, emission-terminated paths)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_bvh_kernel_textured_mesh_exact_interior():
+    """Image texture on a UV-mapped mesh through the BVH path with the
+    closest-hit kernel (interpreted): pixels strictly inside a
+    constant-color image region must match the brute XLA path EXACTLY
+    (same texel, emission-terminated paths)."""
+    from cudaraytracer_tpu.models.bvh import build_bvh, make_bvh_hit_fn
     from cudaraytracer_tpu.models.renderer import render_radiance
     from cudaraytracer_tpu.models.scene import DIFFUSE_LIGHT
-    from cudaraytracer_tpu.ops.pallas.render_kernel import (
-        pack_camera, pack_scene_tables, pallas_render_sample)
 
     # 2x2 pure-color quadrants (no gradients): away from the quadrant
     # seams every jittered sample in a pixel lands on the same texel
@@ -465,27 +364,18 @@ def test_pallas_textured_mesh_exact_interior():
                 tex_type=2, tex_id=slot)
     sd = sc.device()
     cam = make_camera_params(origin=(0, 0, 1.6), forward=(0, 0, -1))
-    W, H, DEPTH = 64, 32, 3
+    W, H, DEPTH = 32, 16, 3
+    kw = dict(width=W, height=H, camera_model="look_at")
 
-    t = pack_scene_tables(sc, with_uv=True)
-    assert t.vattrs
-    tabs = tuple(jnp.asarray(x) for x in (t.S, t.P, t.clusters, t.supers))
-    cam_vec = pack_camera(cam, sd, W, H, 1e-3)
-    with pltpu.force_tpu_interpret_mode():
-        out, counts = pallas_render_sample(
-            *tabs, t.n_super, cam_vec, 3, DEPTH,
-            width=W, height=H, camera_model="look_at",
-            tile_h=16, tile_w=128, has_rects=False, has_tris=True,
-            has_vattrs=True, spp=1,
-            atlas=jnp.asarray(sc.atlas), tex_hw=jnp.asarray(sc.tex_hw),
-        )
-        pal = np.asarray(out[:H, :W]) / np.maximum(
-            np.asarray(counts[:H, :W])[..., None], 1.0)
-    xla = np.asarray(
-        render_radiance(sd, cam, rngu.base_key(2), 1, DEPTH,
-                        width=W, height=H, camera_model="look_at"))
+    got = np.asarray(render_radiance(
+        sd, cam, rngu.base_key(3), 1, DEPTH, **kw,
+        hit_fn=make_bvh_hit_fn(build_bvh(sc), sd, traversal="interpret")))
+    xla = np.asarray(render_radiance(sd, cam, rngu.base_key(2), 1, DEPTH,
+                                     **kw))
 
-    # interior mask: pixels whose 3x3 XLA neighborhood is constant
+    # interior mask: pixels whose 3x3 XLA neighborhood is constant (the
+    # two renders use different keys: only the texel, not the jitter,
+    # may decide an interior pixel)
     const = np.ones((H, W), bool)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
@@ -494,6 +384,6 @@ def test_pallas_textured_mesh_exact_interior():
     const[[0, -1], :] = False
     const[:, [0, -1]] = False
     assert const.sum() > H * W * 0.3  # plenty of interior
-    assert np.abs(pal[const] - xla[const]).max() < 1e-5
+    assert np.abs(got[const] - xla[const]).max() < 1e-5
     # all four quadrant colors actually appear
-    assert len({tuple(np.round(c, 3)) for c in pal[const]}) >= 4
+    assert len({tuple(np.round(c, 3)) for c in got[const]}) >= 4
