@@ -8,7 +8,7 @@ test:
 
 # fast tier: everything not marked `slow` (heavy e2e runs) — oracle
 # goldens, the closest-hit kernel through the Pallas interpreter, scene
-# CRUD, camera, viewer endpoints.  Tests marked `gpu` skip without a GPU.
+# CRUD, camera, viewer endpoints.
 test-fast:
 	python -m pytest tests/ -q -m "not slow"
 

@@ -28,11 +28,9 @@ the same band and seeds.
 
 Every phase raises on failure, so any failure exits non-zero; the last line
 of a passing run is one JSON object naming the device.  Without a GPU the
-script exits non-zero before printing any result.  ``--cpu-rehearsal``
-runs the same phases on the CPU at toy sizes (the kernel through the
-Pallas interpreter) and prints no result line.
+script exits non-zero before printing any result.
 
-Usage: python chip_smoke.py [--multi | --cpu-rehearsal]
+Usage: python chip_smoke.py [--multi]
 """
 
 from __future__ import annotations
@@ -74,6 +72,9 @@ BLOCK_TOL = 1e-2
 # --multi: each band equals the single-GPU band up to the order in which
 # the psum adds the two sample streams.
 BAND_RTOL, BAND_ATOL = 1e-5, 1e-4
+FULL = (1280, 720)
+SMALL = (320, 180)
+DEPTH = 12
 
 
 def log(*a):
@@ -81,13 +82,7 @@ def log(*a):
 
 
 class Smoke:
-    def __init__(self, rehearsal: bool):
-        self.rehearsal = rehearsal
-        # rehearsal: toy sizes, the kernel through the Pallas interpreter
-        self.full = (32, 16) if rehearsal else (1280, 720)
-        self.small = (32, 16) if rehearsal else (320, 180)
-        self.traversal = "interpret" if rehearsal else "kernel"
-        self.depth = 3 if rehearsal else 12
+    def __init__(self):
         self.card = ""
 
     # ------------------------------------------------------------ helpers
@@ -100,14 +95,16 @@ class Smoke:
         return sc, sc.device(), build_bvh(sc), make_cam(), \
             scenes.camera_model_for(name)
 
-    def kernel_hit(self, sd, bvh, org, dirn):
-        from cudaraytracer_tpu.ops.bvh_kernel import bvh_closest_hit_kernel
+    @staticmethod
+    def kernel_hit(sd, bvh, org, dirn):
+        from cudaraytracer_tpu.ops.bvh_kernel import (bvh_closest_hit_kernel,
+                                                      pack_tables)
 
         kw = (dict(edge1=sd.edge1, edge2=sd.edge2)
               if sd.has_triangles else {})
         return bvh_closest_hit_kernel(
-            org, dirn, bvh, sd.prim_type, sd.center, sd.size, t_min=1e-3,
-            interpret=self.traversal == "interpret", **kw)
+            org, dirn, pack_tables(bvh, sd.prim_type, sd.center, sd.size,
+                                   **kw), t_min=1e-3)
 
     @staticmethod
     def compare_hits(name, ref, got, tight_t=True, agree_min=AGREE_MIN):
@@ -175,11 +172,10 @@ class Smoke:
     def render_cli(self, scene, frames, out):
         from cudaraytracer_tpu.__main__ import main
 
-        w, h = self.full
-        argv = ["render", "--scene", scene, "--width", str(w), "--height",
-                str(h), "--max-depth", str(self.depth), "--frames",
-                str(frames), "-o", out]
-        return main(argv + (["--cpu"] if self.rehearsal else []))
+        w, h = FULL
+        return main(["render", "--scene", scene, "--width", str(w),
+                     "--height", str(h), "--max-depth", str(DEPTH),
+                     "--frames", str(frames), "-o", out])
 
     # ------------------------------------------------------------- phases
     def phase_device(self):
@@ -199,7 +195,7 @@ class Smoke:
         from cudaraytracer_tpu.ops import intersect
         from cudaraytracer_tpu.ops.bvh_traverse import bvh_closest_hit
 
-        w, h = self.full
+        w, h = FULL
         for name in ("rtow_final", "cornell", "mesh_smooth", "terrain_big"):
             sc, sd, bvh, cam, model = self.scene(name)
             org, dirn = self.rays(sd, bvh, cam, model, w, h)
@@ -210,15 +206,14 @@ class Smoke:
             ker = jax.jit(lambda o, d: self.kernel_hit(sd, bvh, o, d))
             self.compare_hits(f"{name} {w}x{h} primary+bounce",
                               xla(org, dirn), ker(org, dirn))
-            if not self.rehearsal:
-                log(f"    closest hit of {org.shape[0]} rays: kernel "
-                    f"{self.timed(ker, org, dirn):.3f} ms, XLA "
-                    f"{self.timed(xla, org, dirn):.3f} ms ({self.card})")
+            log(f"    closest hit of {org.shape[0]} rays: kernel "
+                f"{self.timed(ker, org, dirn):.3f} ms, XLA "
+                f"{self.timed(xla, org, dirn):.3f} ms ({self.card})")
         sc, sd, bvh, cam, model = self.scene("rtow_final")
-        org, dirn = self.rays(sd, bvh, cam, model, *self.small)
+        org, dirn = self.rays(sd, bvh, cam, model, *SMALL)
         brute = jax.jit(lambda o, d: intersect.hit_scene(
             o, d, sd.prim_type, sd.center, sd.size, sd.active, t_min=1e-3))
-        self.compare_hits("rtow_final %dx%d brute vs BVH kernel" % self.small,
+        self.compare_hits("rtow_final %dx%d brute vs BVH kernel" % SMALL,
                           brute(org, dirn),
                           jax.jit(lambda o, d: self.kernel_hit(
                               sd, bvh, o, d))(org, dirn), tight_t=False,
@@ -235,23 +230,22 @@ class Smoke:
         out = os.path.join(OUT_DIR, "rtow_final.npy")
         stats = self.render_cli("rtow_final", 8, out)
         img = np.load(out)
-        w, h = self.full
+        w, h = FULL
         assert img.shape == (h, w, 3), img.shape
         assert np.isfinite(img).all(), "non-finite radiance"
         assert float(img.mean()) > 0.01, f"black frame (mean {img.mean()})"
         # rays of one 1-spp frame (primary + bounces, the renderer's count)
         sc = scenes.rtow_final_scene()
-        r = Renderer(w, h, camera_model="look_at", traversal=self.traversal)
+        r = Renderer(w, h, camera_model="look_at")
         _, nrays = r.render(sc.device(), scenes.rtow_final_camera(
-            aperture=0.0), rngu.base_key(), spp=1, max_depth=self.depth,
+            aperture=0.0), rngu.base_key(), spp=1, max_depth=DEPTH,
             bvh=build_bvh(sc), with_stats=True)
         ms = stats["ms_per_frame"]
-        log(f"  rtow_final {w}x{h} depth {self.depth}, 8 frames: "
+        log(f"  rtow_final {w}x{h} depth {DEPTH}, 8 frames: "
             f"mean radiance {float(img.mean()):.4f}; first frame "
             f"{stats['first_frame_s']:.2f} s (compile included)")
-        if not self.rehearsal:
-            log(f"  {ms:.3f} ms/frame, {float(nrays) / ms / 1e3:.2f} Mrays/s "
-                f"({float(nrays):.0f} rays/frame) on {self.card}")
+        log(f"  {ms:.3f} ms/frame, {float(nrays) / ms / 1e3:.2f} Mrays/s "
+            f"({float(nrays):.0f} rays/frame) on {self.card}")
 
     def phase_image(self):
         import jax
@@ -262,13 +256,12 @@ class Smoke:
         from cudaraytracer_tpu.utils import rng as rngu
 
         sc, sd, bvh, cam, model = self.scene("rtow_final")
-        w, h = self.small
-        spp = 4 if self.rehearsal else 16
+        w, h = SMALL
+        spp = 16
 
         def run(sd, bvh, key):
-            hit_fn = None if bvh is None else make_bvh_hit_fn(
-                bvh, sd, traversal=self.traversal)
-            return render_radiance(sd, cam, key, spp, self.depth, width=w,
+            hit_fn = None if bvh is None else make_bvh_hit_fn(bvh, sd)
+            return render_radiance(sd, cam, key, spp, DEPTH, width=w,
                                    height=h, camera_model=model,
                                    hit_fn=hit_fn) / spp
 
@@ -296,12 +289,11 @@ class Smoke:
         img = np.load(out)
         assert np.isfinite(img).all(), "non-finite radiance"
         assert float(img.mean()) > 0.01, "black frame"
-        w, h = self.full
-        log(f"  terrain_big {w}x{h} depth {self.depth}, 4 frames: mean "
+        w, h = FULL
+        log(f"  terrain_big {w}x{h} depth {DEPTH}, 4 frames: mean "
             f"radiance {float(img.mean()):.4f}; first frame "
             f"{stats['first_frame_s']:.2f} s (compile included)")
-        if not self.rehearsal:
-            log(f"  {stats['ms_per_frame']:.3f} ms/frame on {self.card}")
+        log(f"  {stats['ms_per_frame']:.3f} ms/frame on {self.card}")
 
     def phase_viewer(self):
         import struct
@@ -310,9 +302,9 @@ class Smoke:
         from cudaraytracer_tpu.viewer.app import Application
         from cudaraytracer_tpu.viewer.server import ViewerServer
 
-        w, h = self.full
+        w, h = FULL
         cfg = RenderConfig(width=w, height=h, scene="rtow_final",
-                           camera_model="look_at", max_depth=self.depth)
+                           camera_model="look_at", max_depth=DEPTH)
         app = Application(cfg)
         app.setup_default_layers()
         server = ViewerServer(app, port=0, data_dir=OUT_DIR)
@@ -365,15 +357,15 @@ class Smoke:
         assert len(devices) >= 4, f"--multi needs 4 devices, have {len(devices)}"
         mesh = make_mesh(n_rows=2, n_samples=2, devices=devices[:4])
         sc, sd, bvh, cam, model = self.scene("rtow_final")
-        w, h = self.full
+        w, h = FULL
         spp = 4
         key = rngu.base_key()
 
         @jax.jit
         def sharded(sd, bvh, key):
-            return render_sharded(sd, cam, key, spp, self.depth, width=w,
+            return render_sharded(sd, cam, key, spp, DEPTH, width=w,
                                   height=h, mesh=mesh, camera_model=model,
-                                  bvh=bvh, traversal=self.traversal)
+                                  bvh=bvh)
 
         ms = self.timed(sharded, sd, bvh, key, reps=3)
         out = np.asarray(sharded(sd, bvh, key))
@@ -383,9 +375,9 @@ class Smoke:
         @jax.jit
         def single(sd, bvh, key, y0, offset):
             return render_radiance(
-                sd, cam, key, local, self.depth, width=w, height=h,
+                sd, cam, key, local, DEPTH, width=w, height=h,
                 camera_model=model, y0=y0, tile_h=band, sample_offset=offset,
-                hit_fn=make_bvh_hit_fn(bvh, sd, traversal=self.traversal))
+                hit_fn=make_bvh_hit_fn(bvh, sd))
 
         for b in range(2):
             want = sum(np.asarray(single(sd, bvh, key, b * band, s * local))
@@ -396,27 +388,24 @@ class Smoke:
                 f"|sharded - single| {diff:.3g}")
             np.testing.assert_allclose(got, want, rtol=BAND_RTOL,
                                        atol=BAND_ATOL)
-        log(f"  2x2 mesh rtow_final {w}x{h} depth {self.depth} {spp} spp: "
+        log(f"  2x2 mesh rtow_final {w}x{h} depth {DEPTH} {spp} spp: "
             f"{ms:.3f} ms/frame on 4 x {self.card.splitlines()[0] if self.card else '?'}")
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    g = p.add_mutually_exclusive_group()
-    g.add_argument("--multi", action="store_true",
+    p.add_argument("--multi", action="store_true",
                    help="run only the four-GPU sharded path")
-    g.add_argument("--cpu-rehearsal", dest="rehearsal", action="store_true",
-                   help="toy sizes on the CPU; prints no result line")
     args = p.parse_args(argv)
 
     t_start = time.perf_counter()
     from cudaraytracer_tpu.utils.runtime import (enable_compile_cache,
                                                  select_backend)
 
-    select_backend(cpu=args.rehearsal)
+    select_backend()
     enable_compile_cache()
     os.makedirs(OUT_DIR, exist_ok=True)
-    s = Smoke(args.rehearsal)
+    s = Smoke()
     phases = [("device", s.phase_device)]
     if args.multi:
         phases.append(("multi", s.phase_multi))
@@ -432,9 +421,6 @@ def main(argv=None):
         device = r if name == "device" else device
         log(f"  {name} passed in {time.perf_counter() - t0:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    if args.rehearsal:
-        log("cpu rehearsal: no device result")
-        return 0
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

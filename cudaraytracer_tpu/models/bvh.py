@@ -28,7 +28,6 @@ their plane axis (Hittable.cuh:167-181, 223-237, 279-293).
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -242,29 +241,35 @@ def make_bvh_hit_fn(bvh: BVHData, scene_data, t_min: float = 0.001,
     """Closest-hit function (org, dirn) -> (hit, t, idx) using the BVH.
 
     Drop-in replacement for the brute-force ops.intersect.hit_scene path
-    (the renderer's hit_fn hook).  ``traversal`` picks the tree walk
-    (resolve_traversal).  ``media=False`` leaves constant-density media
-    out entirely (the G-buffer sees through them, ops/gbuffer.py).
+    (the renderer's hit_fn hook).  The tree walk is resolve_traversal's
+    choice; ``traversal`` overrides it (tests compare the walks).
+    ``media=False`` leaves constant-density media out entirely (the
+    G-buffer sees through them, ops/gbuffer.py).
     """
-    from ..ops.bvh_kernel import bvh_closest_hit_kernel
+    from ..ops.bvh_kernel import bvh_closest_hit_kernel, pack_tables
     from ..ops.bvh_traverse import bvh_closest_hit
 
     traversal = resolve_traversal(traversal)
     tri_kw = (dict(edge1=scene_data.edge1, edge2=scene_data.edge2)
               if scene_data.has_triangles else {})
     if traversal == "xla":
-        closest = bvh_closest_hit
+        def closest(org, dirn):
+            return bvh_closest_hit(org, dirn, bvh, scene_data.prim_type,
+                                   scene_data.center, scene_data.size,
+                                   t_min=t_min, **tri_kw)
     else:
-        closest = functools.partial(bvh_closest_hit_kernel,
-                                    interpret=traversal == "interpret")
+        # packed here, once per traced frame: the bounce loop reuses them
+        tables = pack_tables(bvh, scene_data.prim_type, scene_data.center,
+                             scene_data.size, **tri_kw)
+
+        def closest(org, dirn):
+            return bvh_closest_hit_kernel(
+                org, dirn, tables, t_min=t_min,
+                interpret=traversal == "interpret")
     with_media = media and scene_data.has_media
 
     def hit_fn(org, dirn, u_med=None, time=None):
-        hit, t, idx = closest(
-            org, dirn, bvh,
-            scene_data.prim_type, scene_data.center, scene_data.size,
-            t_min=t_min, **tri_kw,
-        )
+        hit, t, idx = closest(org, dirn)
         if with_media or scene_data.has_motion:
             # media and moving spheres live OUTSIDE the tree (build_bvh
             # docstring): one brute side scan over just those prims

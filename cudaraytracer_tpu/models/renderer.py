@@ -320,7 +320,6 @@ class Renderer:
         nee: bool = False,
         nee_p: float = 0.5,
         qmc: bool = False,
-        traversal: str | None = None,
     ):
         self.width = int(width)
         self.height = int(height)
@@ -331,17 +330,13 @@ class Renderer:
         self.nee = bool(nee)  # estimator switch: recompiles, like accel
         self.nee_p = float(nee_p)
         self.qmc = bool(qmc)  # low-discrepancy pixel jitter (ops/qmc.py)
-        # BVH closest-hit walk (models/bvh.py::resolve_traversal): the
-        # kernel on a GPU, XLA elsewhere
-        self.traversal = traversal
 
         def _make_hit_fn(scene, bvh):
             if bvh is None:
                 return None
             from .bvh import make_bvh_hit_fn
 
-            return make_bvh_hit_fn(bvh, scene, t_min=self.t_min,
-                                   traversal=self.traversal)
+            return make_bvh_hit_fn(bvh, scene, t_min=self.t_min)
 
         @functools.partial(jax.jit, static_argnames=("with_stats",))
         def _render(scene, bvh, cam, key, spp, max_depth, with_stats=False,

@@ -19,6 +19,7 @@ Media and moving spheres stay outside the tree, exactly as there
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -37,12 +38,14 @@ NUM_WARPS = 1
 # node table columns: min xyz, max xyz (f32); prim, skip (i32)
 _NODE_F = 6
 _NODE_I = 2
-# primitive table columns: center xyz, size (2), edge1 xyz, edge2 xyz
-_PRIM_F = 11
+# primitive table columns: center xyz, size (2), and with triangles
+# edge1 xyz, edge2 xyz
+_PRIM_F_TRI = 11
 
 
 def _kernel(n_ref, ray_ref, node_f_ref, node_i_ref, ptype_ref, prim_f_ref,
-            t_ref, prim_ref, *, t_min: float, has_tris: bool):
+            t_ref, prim_ref, *, t_min: float, prim_cols: int):
+    has_tris = prim_cols == _PRIM_F_TRI
     ox, oy, oz = ray_ref[0, :], ray_ref[1, :], ray_ref[2, :]
     dx, dy, dz = ray_ref[3, :], ray_ref[4, :], ray_ref[5, :]
     # aabb.inv_direction: sign-preserving stand-in for 1/0
@@ -85,8 +88,8 @@ def _kernel(n_ref, ray_ref, node_f_ref, node_i_ref, ptype_ref, prim_f_ref,
         test = box_hit & is_leaf
         psafe = jnp.maximum(prim, 0)
         ptype = plgpu.load(ptype_ref.at[psafe], mask=test, other=-1)
-        pf = [gather(prim_f_ref, psafe, c, _PRIM_F, test)
-              for c in range(5 if not has_tris else _PRIM_F)]
+        pf = [gather(prim_f_ref, psafe, c, prim_cols, test)
+              for c in range(prim_cols)]
         cx, cy, cz, s0, s1 = pf[:5]
 
         # sphere (bvh_traverse._leaf_prim_t)
@@ -163,22 +166,47 @@ def _kernel(n_ref, ray_ref, node_f_ref, node_i_ref, ptype_ref, prim_f_ref,
     prim_ref[...] = best_prim
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "t_min", "block", "num_warps", "interpret"))
-def bvh_closest_hit_kernel(org, dirn, bvh, prim_type, center, size,
-                           t_min: float = 0.001, edge1=None, edge2=None, *,
-                           block: int = BLOCK_RAYS,
-                           num_warps: int = NUM_WARPS,
-                           interpret: bool = False):
+class KernelTables(NamedTuple):
+    """The kernel's flat copies of the tree and the primitives
+    (pack_tables).  make_bvh_hit_fn packs them once per frame, outside the
+    bounce loop; each bounce then packs only its rays."""
+
+    n_nodes: jax.Array    # i32[1]
+    node_f: jax.Array     # f32[N * 6]: min xyz, max xyz per node
+    node_i: jax.Array     # i32[N * 2]: prim, skip per node
+    prim_type: jax.Array  # i32[P]
+    prim_f: jax.Array     # f32[P, 5]: center xyz, size (2); f32[P, 11]
+    #                       with triangles: ... edge1 xyz, edge2 xyz
+
+
+def pack_tables(bvh, prim_type, center, size, edge1=None,
+                edge2=None) -> KernelTables:
+    """Interleave ``bvh`` (models.bvh.BVHData) and the scene's primitive
+    arrays into the tables the kernel gathers from."""
+    cols = [center, size] + ([edge1, edge2] if edge1 is not None else [])
+    return KernelTables(
+        n_nodes=jnp.reshape(bvh.n_nodes, (1,)).astype(jnp.int32),
+        node_f=jnp.concatenate([bvh.node_min, bvh.node_max],
+                               axis=1).reshape(-1),
+        node_i=jnp.stack([bvh.node_prim, bvh.node_skip], axis=1).reshape(-1),
+        prim_type=prim_type.astype(jnp.int32),
+        prim_f=jnp.concatenate(cols, axis=1),
+    )
+
+
+@functools.partial(jax.jit, static_argnames=("t_min", "interpret"))
+def bvh_closest_hit_kernel(org, dirn, tables: KernelTables,
+                           t_min: float = 0.001, *, interpret: bool = False):
     """Closest hit of every ray through the flat BVH, on the GPU.
 
     Same contract as ``bvh_traverse.bvh_closest_hit`` with ``t_max=None``:
-    returns (hit[R], t[R], prim_idx[R]).  Rays are padded to a multiple of
-    ``block``; ``interpret=True`` runs the kernel on the CPU.
+    returns (hit[R], t[R], prim_idx[R]).  ``tables`` come from
+    pack_tables.  Rays are padded to a multiple of BLOCK_RAYS;
+    ``interpret=True`` runs the kernel on the CPU.
     """
     r = org.shape[0]
-    rp = -(-r // block) * block
-    has_tris = edge1 is not None
+    rp = -(-r // BLOCK_RAYS) * BLOCK_RAYS
+    prim_cols = tables.prim_f.shape[1]
     # [8, R] rows: origin xyz, direction xyz, two zero rows (a Triton
     # block's dimensions are powers of two)
     rays = jnp.concatenate(
@@ -187,29 +215,22 @@ def bvh_closest_hit_kernel(org, dirn, bvh, prim_type, center, size,
     rays = jnp.pad(rays, ((0, 0), (0, rp - r)))
     if rp > r:
         rays = rays.at[3, r:].set(1.0)
-    node_f = jnp.concatenate([bvh.node_min, bvh.node_max], axis=1).reshape(-1)
-    node_i = jnp.stack([bvh.node_prim, bvh.node_skip], axis=1).reshape(-1)
-    cols = [center, size]
-    if has_tris:
-        cols += [edge1, edge2]
-    prim_f = jnp.concatenate(cols, axis=1)
-    prim_f = jnp.pad(prim_f, ((0, 0), (0, _PRIM_F - prim_f.shape[1])))
-    n_nodes = jnp.reshape(bvh.n_nodes, (1,)).astype(jnp.int32)
 
     whole = lambda x: pl.BlockSpec(x.shape, lambda i: (0,) * x.ndim)
-    ins = (n_nodes, rays, node_f, node_i, prim_type.astype(jnp.int32),
-           prim_f.reshape(-1))
+    ins = (tables.n_nodes, rays, tables.node_f, tables.node_i,
+           tables.prim_type, tables.prim_f.reshape(-1))
     t, prim = pl.pallas_call(
-        functools.partial(_kernel, t_min=float(t_min), has_tris=has_tris),
+        functools.partial(_kernel, t_min=float(t_min), prim_cols=prim_cols),
         out_shape=(jax.ShapeDtypeStruct((rp,), jnp.float32),
                    jax.ShapeDtypeStruct((rp,), jnp.int32)),
-        grid=(rp // block,),
-        in_specs=[whole(n_nodes), pl.BlockSpec((8, block), lambda i: (0, i)),
+        grid=(rp // BLOCK_RAYS,),
+        in_specs=[whole(ins[0]),
+                  pl.BlockSpec((8, BLOCK_RAYS), lambda i: (0, i)),
                   *(whole(x) for x in ins[2:])],
-        out_specs=(pl.BlockSpec((block,), lambda i: (i,)),
-                   pl.BlockSpec((block,), lambda i: (i,))),
+        out_specs=(pl.BlockSpec((BLOCK_RAYS,), lambda i: (i,)),
+                   pl.BlockSpec((BLOCK_RAYS,), lambda i: (i,))),
         backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
                                              num_stages=1),
         interpret=interpret,
         name="bvh_closest_hit",

@@ -2,9 +2,8 @@
 
 Pallas kernels run through the interpreter on the CPU; multi-device
 sharding tests use the 8 virtual host devices.  Must configure before any
-backend initializes.  Tests that need a GPU take the ``gpu`` fixture (and
-carry the ``gpu`` marker): it skips here, and chip_smoke.py runs the same
-checks on the card.
+backend initializes.  The compiled kernel is checked on the GPU by
+chip_smoke.py.
 """
 
 import os
@@ -36,11 +35,18 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 @pytest.fixture
-def gpu():
-    """The GPU device; skips the test when JAX has none (decided here, at
-    run time, never while the module is imported)."""
-    devices = [d for d in jax.devices() if d.platform == "gpu"] \
-        if jax.default_backend() == "gpu" else []
-    if not devices:
-        pytest.skip("needs a GPU (run chip_smoke.py on the card)")
-    return devices[0]
+def interpret_kernel(monkeypatch):
+    """Make the BVH path's default closest hit the GPU kernel run through
+    the Pallas interpreter (the CPU's default is the XLA traversal), for
+    code that picks its traversal itself (Renderer, the viewer).  Returns
+    the traversals resolved while it is active."""
+    from cudaraytracer_tpu.models import bvh
+
+    resolve, seen = bvh.resolve_traversal, []
+
+    def interpret(traversal=None):
+        seen.append(resolve(traversal or "interpret"))
+        return seen[-1]
+
+    monkeypatch.setattr(bvh, "resolve_traversal", interpret)
+    return seen

@@ -3,8 +3,7 @@
 On the CPU the kernel runs through the Pallas interpreter (the Triton
 route's semantics, not its code generation); its lowering to Triton IR is
 checked separately by cross-lowering for CUDA, which needs no GPU.  The
-compiled kernel is compared on the GPU by chip_smoke.py (tests marked
-``gpu`` below run there too).
+compiled kernel is compared on the GPU by chip_smoke.py.
 
 Tolerances: both traversals are f32 and walk the same tree in the same
 order, so the hit primitive must agree on every ray here (no ties in these
@@ -23,7 +22,9 @@ from cudaraytracer_tpu.models.bvh import (build_bvh, make_bvh_hit_fn,
                                           resolve_traversal)
 from cudaraytracer_tpu.models.camera import RAY_GENERATORS
 from cudaraytracer_tpu.models.scene import Scene
-from cudaraytracer_tpu.ops.bvh_kernel import bvh_closest_hit_kernel
+from cudaraytracer_tpu.ops.bvh_kernel import (BLOCK_RAYS,
+                                              bvh_closest_hit_kernel,
+                                              pack_tables)
 from cudaraytracer_tpu.ops.bvh_traverse import bvh_closest_hit
 
 T_REL = 1e-4
@@ -32,6 +33,11 @@ T_REL_GRAZING = 2e-3
 
 def _tri_kw(sd):
     return dict(edge1=sd.edge1, edge2=sd.edge2) if sd.has_triangles else {}
+
+
+def _kernel(org, d, bvh, sd, **kw):
+    tables = pack_tables(bvh, sd.prim_type, sd.center, sd.size, **_tri_kw(sd))
+    return bvh_closest_hit_kernel(org, d, tables, **kw)
 
 
 def _rays(kind, scene_name, sd, r=192):
@@ -72,25 +78,24 @@ def test_kernel_matches_xla_traversal(name, rays):
     sc = make_scene()
     sd, bvh = sc.device(), build_bvh(sc)
     org, d = _rays(rays, name, sd)
-    args = (org, d, bvh, sd.prim_type, sd.center, sd.size)
-    ref = bvh_closest_hit(*args, **_tri_kw(sd))
-    got = bvh_closest_hit_kernel(*args, interpret=True, **_tri_kw(sd))
-    _assert_same(ref, got)
+    ref = bvh_closest_hit(org, d, bvh, sd.prim_type, sd.center, sd.size,
+                          **_tri_kw(sd))
+    _assert_same(ref, _kernel(org, d, bvh, sd, interpret=True))
 
 
-@pytest.mark.parametrize("r,block", [(1, 32), (127, 128), (129, 64),
-                                     (300, 256)])
-def test_kernel_pads_ray_count(r, block):
+@pytest.mark.parametrize("r", [1, BLOCK_RAYS - 1, BLOCK_RAYS + 1,
+                               9 * BLOCK_RAYS + 12])
+def test_kernel_pads_ray_count(r):
     """Ray counts that are not a multiple of the block are padded and
     cropped; padding lanes never leak into the results."""
     sc = scenes.cornell_like_scene()
     sd, bvh = sc.device(), build_bvh(sc)
     org, d = _rays("random", "cornell", sd, r=max(r, 16))
     org, d = org[:r], d[:r]
-    args = (org, d, bvh, sd.prim_type, sd.center, sd.size)
-    got = bvh_closest_hit_kernel(*args, block=block, interpret=True)
+    got = _kernel(org, d, bvh, sd, interpret=True)
     assert all(x.shape == (r,) for x in got)
-    _assert_same(bvh_closest_hit(*args), got)
+    _assert_same(bvh_closest_hit(org, d, bvh, sd.prim_type, sd.center,
+                                 sd.size), got)
 
 
 def test_kernel_empty_tree_misses():
@@ -99,8 +104,7 @@ def test_kernel_empty_tree_misses():
     assert int(bvh.n_nodes) == 0
     org = jnp.zeros((32, 3))
     d = jnp.ones((32, 3))
-    hit, t, prim = bvh_closest_hit_kernel(
-        org, d, bvh, sd.prim_type, sd.center, sd.size, interpret=True)
+    hit, t, prim = _kernel(org, d, bvh, sd, interpret=True)
     assert not np.asarray(hit).any() and (np.asarray(prim) == -1).all()
 
 
@@ -112,9 +116,7 @@ def test_kernel_t_min_is_respected():
     sd, bvh = sc.device(), build_bvh(sc)
     org = jnp.asarray([[1.0, 0.0, 0.0], [3.0, 0.0, 0.0]])
     d = jnp.asarray([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0]])
-    hit, t, prim = bvh_closest_hit_kernel(
-        org, d, bvh, sd.prim_type, sd.center, sd.size, t_min=1e-3,
-        interpret=True)
+    hit, t, prim = _kernel(org, d, bvh, sd, t_min=1e-3, interpret=True)
     np.testing.assert_array_equal(np.asarray(hit), [False, True])
     np.testing.assert_allclose(np.asarray(t)[1], 2.0, rtol=1e-6)
 
@@ -145,8 +147,7 @@ def test_resolve_traversal():
 
 
 @pytest.mark.parametrize("has_tris", [False, True])
-@pytest.mark.parametrize("block,num_warps", [(32, 1), (128, 4)])
-def test_kernel_lowers_to_triton_for_cuda(has_tris, block, num_warps):
+def test_kernel_lowers_to_triton_for_cuda(has_tris):
     """The Triton lowering (what the GPU compiles) accepts the kernel: a
     cross-platform lowering for CUDA, which needs no GPU.  PTX generation
     itself happens on the GPU (chip_smoke.py)."""
@@ -156,20 +157,31 @@ def test_kernel_lowers_to_triton_for_cuda(has_tris, block, num_warps):
     sd, bvh = sc.device(), build_bvh(sc)
     assert sd.has_triangles == has_tris
     org = jnp.zeros((1000, 3))
-    fn = jax.jit(lambda o, d: bvh_closest_hit_kernel(
-        o, d, bvh, sd.prim_type, sd.center, sd.size, block=block,
-        num_warps=num_warps, **_tri_kw(sd)))
+    fn = jax.jit(lambda o, d: _kernel(o, d, bvh, sd))
     text = fn.trace(org, org).lower(lowering_platforms=("cuda",)).as_text()
     assert "bvh_closest_hit" in text
 
 
-@pytest.mark.gpu
-def test_kernel_compiled_matches_xla_on_gpu(gpu):
-    """The compiled kernel on the GPU, at 720p primary rays."""
-    sc = scenes.rtow_final_scene()
+@pytest.mark.parametrize("name", ["rtow_final", "mesh_smooth"])
+def test_pack_tables_layout(name):
+    """The kernel's tables interleave the BVH's node arrays and the scene's
+    primitive columns (triangle edges only when the scene has any)."""
+    make_scene, _ = scenes.SCENES[name]
+    sc = make_scene()
     sd, bvh = sc.device(), build_bvh(sc)
-    org, d = RAY_GENERATORS["look_at"](scenes.rtow_final_camera(), 1280, 720,
-                                       jax.random.PRNGKey(0), y0=0,
-                                       tile_h=720)
-    args = (org, d, bvh, sd.prim_type, sd.center, sd.size)
-    _assert_same(bvh_closest_hit(*args), bvh_closest_hit_kernel(*args))
+    tb = pack_tables(bvh, sd.prim_type, sd.center, sd.size, **_tri_kw(sd))
+    n = bvh.node_min.shape[0]
+    node_f = np.asarray(tb.node_f).reshape(n, 6)
+    node_i = np.asarray(tb.node_i).reshape(n, 2)
+    np.testing.assert_array_equal(node_f[:, :3], bvh.node_min)
+    np.testing.assert_array_equal(node_f[:, 3:], bvh.node_max)
+    np.testing.assert_array_equal(node_i[:, 0], bvh.node_prim)
+    np.testing.assert_array_equal(node_i[:, 1], bvh.node_skip)
+    assert int(tb.n_nodes[0]) == int(bvh.n_nodes)
+    prim_f = np.asarray(tb.prim_f)
+    assert prim_f.shape[1] == (11 if sd.has_triangles else 5)
+    np.testing.assert_array_equal(prim_f[:, :3], sd.center)
+    np.testing.assert_array_equal(prim_f[:, 3:5], sd.size)
+    if sd.has_triangles:
+        np.testing.assert_array_equal(prim_f[:, 5:8], sd.edge1)
+        np.testing.assert_array_equal(prim_f[:, 8:], sd.edge2)

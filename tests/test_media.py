@@ -113,21 +113,34 @@ def test_bvh_accel_matches_brute():
     assert np.abs(blk_b - blk_a).mean() < 0.05
 
 
+def first_hit_features(sc, cam, W, H, traversal):
+    """G-buffer of ``sc``: through gbuffer_step (the viewer's call) for the
+    brute scan and the BVH's default walk, through primary_features with
+    the interpreted kernel's hit function for ``"interpret"``."""
+    from cudaraytracer_tpu.models.bvh import build_bvh, make_bvh_hit_fn
+    from cudaraytracer_tpu.ops.gbuffer import gbuffer_step, primary_features
+
+    sd = sc.device()
+    if traversal == "interpret":
+        return primary_features(
+            sd, cam, width=W, height=H, camera_model="look_at",
+            hit_fn=make_bvh_hit_fn(build_bvh(sc), sd, traversal=traversal,
+                                   media=False))
+    return gbuffer_step(W, H, "look_at")(
+        sd, cam, None if traversal == "brute" else build_bvh(sc))
+
+
 @pytest.mark.parametrize("traversal", ["brute", "xla", "interpret"])
 def test_gbuffer_sees_through_media(traversal):
     """Feature buffers ignore fog on every first-hit path (brute scan, BVH
     with the XLA traversal, BVH with the closest-hit kernel): depth/normal
     come from the surfaces behind it, so the denoiser's edge stopping is
     never poisoned by a stochastic fog 'surface'."""
-    from cudaraytracer_tpu.models.bvh import build_bvh
     from cudaraytracer_tpu.ops.gbuffer import gbuffer_step
 
     sc, cam = _small_smoke()
     W, H = 32, 16
-    step = gbuffer_step(W, H, "look_at",
-                        traversal=None if traversal == "brute" else traversal)
-    bvh = None if traversal == "brute" else build_bvh(sc)
-    gb = step(sc.device(), cam, bvh)
+    gb = first_hit_features(sc, cam, W, H, traversal)
     # ground truth: the SAME scene with the fog deleted, brute first hit —
     # the feature buffers must match (the fog boundary never registers)
     sc2, _ = _small_smoke()

@@ -146,15 +146,12 @@ def test_gbuffer_sees_through_box_media(traversal, yaw):
     every first-hit path — brute scan, BVH with the XLA traversal, BVH
     with the closest-hit kernel: depth/normal come from the surfaces
     behind it."""
-    from cudaraytracer_tpu.models.bvh import build_bvh
     from cudaraytracer_tpu.ops.gbuffer import gbuffer_step
+    from test_media import first_hit_features
 
     sc, cam = _rotated_box_smoke(yaw) if yaw else _small_box_smoke()
     W, H = 32, 16
-    step = gbuffer_step(W, H, "look_at",
-                        traversal=None if traversal == "brute" else traversal)
-    gb = step(sc.device(), cam,
-              None if traversal == "brute" else build_bvh(sc))
+    gb = first_hit_features(sc, cam, W, H, traversal)
     sc2, _ = _small_box_smoke()
     for k in sc2.active_indices():
         if int(sc2.mat_type[k]) == ISOTROPIC:

@@ -152,12 +152,8 @@ def _sky_scene():
     return sc
 
 
-def _bvh_renderer(W, H, traversal):
-    return Renderer(W, H, qmc=True, traversal=traversal)
-
-
 @pytest.mark.parametrize("traversal", ["xla", "interpret"])
-def test_bvh_qmc_primary_identity(traversal):
+def test_bvh_qmc_primary_identity(traversal, request):
     """With QMC, the BVH path (either traversal) and the brute reference
     trace the SAME primary rays: on a background-only scene the radiance
     matches to f32 rounding."""
@@ -168,13 +164,15 @@ def test_bvh_qmc_primary_identity(traversal):
     W, H, SPP = 16, 8, 3
     brute = np.asarray(Renderer(W, H, qmc=True).render(
         sc.device(), cam, rngu.base_key(), spp=SPP, max_depth=2))
-    bvh = np.asarray(_bvh_renderer(W, H, traversal).render(
+    if traversal == "interpret":
+        request.getfixturevalue("interpret_kernel")
+    bvh = np.asarray(Renderer(W, H, qmc=True).render(
         sc.device(), cam, rngu.base_key(), spp=SPP, max_depth=2,
         bvh=build_bvh(sc)))
     assert np.abs(bvh - brute).max() < 1e-4
 
 
-def test_bvh_qmc_progressive_extends_sequence():
+def test_bvh_qmc_progressive_extends_sequence(interpret_kernel):
     """Two progressive 1-spp frames at sample offsets 0 and 1 sum exactly
     to one 2-spp render (global index = offset + sample), and the offset
     advance changes the jitter — on the BVH path with the kernel."""
@@ -183,7 +181,7 @@ def test_bvh_qmc_progressive_extends_sequence():
     sc = _sky_scene()
     sd, bvh = sc.device(), build_bvh(sc)
     cam = make_camera_params()
-    r = _bvh_renderer(16, 8, "interpret")
+    r = Renderer(16, 8, qmc=True)
     key = rngu.base_key()
     two = np.asarray(r.render(sd, cam, key, spp=2, max_depth=2, bvh=bvh))
     zero = r.zeros_accum()

@@ -62,16 +62,54 @@ def test_cli_exits_without_gpu(argv, tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)  # no output written
 
 
-def test_bench_exits_without_gpu(capsys):
+def _bench():
     sys.path.insert(0, REPO)
     try:
         import bench
     finally:
         sys.path.remove(REPO)
+    return bench
+
+
+def test_bench_exits_without_gpu(capsys):
+    bench = _bench()
     with pytest.raises(SystemExit) as e:
         bench.main(["--width", "8", "--height", "8"])
     assert e.value.code not in (0, None)
     assert capsys.readouterr().out == ""  # no result printed
+
+
+def test_trace_breakdown_unions_overlapping_events():
+    """Busy time is the union of the device intervals (streams overlap);
+    per-op time sums every event of that name."""
+    ms = 1_000_000
+    events = [("k", 0, 4 * ms), ("copy", 2 * ms, 4 * ms),  # overlap 2 ms
+              ("k", 10 * ms, 2 * ms),                     # gap 4 ms
+              ("f", 10 * ms, 1 * ms)]                     # inside k
+    out = _bench().trace_breakdown(events)
+    assert out["device_busy_ms"] == pytest.approx(8.0)
+    assert out["device_span_ms"] == pytest.approx(12.0)
+    assert out["idle_share"] == pytest.approx(1 / 3)
+    assert out["ops_ms"] == [["k", 6.0], ["copy", 4.0], ["f", 1.0]]
+
+
+def test_bench_trace_needs_device_events(tmp_path):
+    """A trace with no GPU plane (here, the CPU's) yields no device events,
+    and the breakdown refuses it rather than report an idle device."""
+    import jax
+    import jax.numpy as jnp
+
+    bench = _bench()
+    f = jax.jit(lambda x: jnp.sin(x).sum())
+    x = jnp.ones((16,))
+    f(x).block_until_ready()
+    with jax.profiler.trace(str(tmp_path)):
+        f(x).block_until_ready()
+    assert bench.read_trace(str(tmp_path)) == []
+    with pytest.raises(ValueError):
+        bench.trace_breakdown([])
+    with pytest.raises(FileNotFoundError):
+        bench.read_trace(str(tmp_path / "none"))
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):
